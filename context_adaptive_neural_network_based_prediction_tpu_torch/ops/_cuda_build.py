@@ -1,11 +1,15 @@
 """Builds and loads the CUDA kernels of `csrc/` (nvcc -> plain-C shared
-library, bound with ctypes).
+libraries, bound with ctypes).
 
-nvcc compiles `csrc/unit_trial.cu` for sm_90a into the port's build
-directory at first use (a few seconds; nothing includes PyTorch's
-headers).  `--fmad=false` keeps every float a*b+c rounded twice, as the
-plain version computes it.  A failed build raises with the compiler's
-output; nothing falls back.
+Each source is compiled by its own nvcc process, for sm_90a, into the
+port's build directory at first use; `load` starts all of them together
+and waits (a few seconds; nothing includes PyTorch's headers).
+`--fmad=false` keeps every float a*b+c rounded twice, as the plain
+version computes it.  A failed build raises with the compiler's output;
+nothing falls back.
+
+  unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`)
+  merger_int.cu   the PNN's integer merger (`merger_int.merger_int_forward`)
 """
 
 from __future__ import annotations
@@ -18,11 +22,11 @@ import threading
 from .. import _build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = (os.path.join(CSRC, "unit_trial.cu"),)
+NAMES = ("unit_trial", "merger_int")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 def nvcc() -> str:
@@ -34,26 +38,56 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
 
 
-def build() -> str:
+def build(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
     return _build_dir.build_once(
-        "unit_trial", SOURCES,
-        lambda out: [nvcc(), *NVCC_FLAGS, "-o", out, *SOURCES])
+        name, (src,), lambda out: [nvcc(), *NVCC_FLAGS, "-o", out, src])
 
 
-def load():
-    """The loaded kernel library, built on first use."""
-    global _lib
+def _bind(name: str, path: str):
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if name == "unit_trial":
+        lib.unit_trial.argtypes = [ci, ci, ci] + [vp] * 30
+    else:
+        lib.merger_int.argtypes = [ci, ci, ci, ci] + [vp] * 5
+    getattr(lib, name).restype = ci
+    err = getattr(lib, f"{name}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ci]
+    return lib
+
+
+def load() -> dict:
+    """Every kernel library, built on first use (one nvcc per source, run
+    at the same time): {name: ctypes library}."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.unit_trial.restype = ci
-            lib.unit_trial.argtypes = [ci, ci, ci] + [vp] * 29
-            lib.unit_trial_error_string.restype = ctypes.c_char_p
-            lib.unit_trial_error_string.argtypes = [ci]
-            _lib = lib
-    return _lib
+        missing = [n for n in NAMES if n not in _libs]
+        paths, errors = {}, []
+
+        def run(name):
+            try:
+                paths[name] = build(name)
+            except Exception as e:  # re-raised below, after every build
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(n,)) for n in missing]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        for name in missing:
+            _libs[name] = _bind(name, paths[name])
+        return dict(_libs)
 
 
-def error_string(err: int) -> str:
-    return f"{err} ({load().unit_trial_error_string(err).decode()})"
+def library(name: str):
+    """The loaded library of `csrc/<name>.cu`."""
+    return load()[name]
+
+
+def error_string(name: str, err: int) -> str:
+    fn = getattr(library(name), f"{name}_error_string")
+    return f"{err} ({fn(err).decode()})"

@@ -28,6 +28,13 @@
 // small kernel takes each slot's first minimum (strict <, ascending mode
 // ids) and gathers its reconstruction, levels and bin counts.
 //
+// The PNN mode.  Under the NN policies the PNN's prediction (b, n, n),
+// computed before the launch, is the prediction of one mode: mode 18
+// (substitution) or the 36th mode, PNNS (switch), as IP_NNMODE says; the
+// block of that mode loads it instead of interpolating.  Without a
+// prediction (a null pointer) that mode predicts zeros.  Nothing else of
+// the trial depends on the policy.
+//
 // What bounds it.  At the encoder's shapes a launch is small: 31 slots x
 // 35 modes x n^2 pixels (1080p), and a frame needs about 10,500 launches
 // (124 wavefront steps x 85 z-order sub-stages).  The work per launch is a
@@ -41,13 +48,15 @@
 
 namespace {
 
-constexpr int M_PAD = 36;     // mode slots per unit (35 modes + padding)
+constexpr int M_PAD = 36;     // mode slots per unit (35 modes + PNNS)
+constexpr int N_INTRA = 35;   // planar, DC and 33 angular modes
 
 // Integer parameters (k_iparams) and float parameters (k_fparams); the
 // order matches ops/unit_fused.py:_kernel_tables.
 enum {
   IP_NMODES, IP_ROWS, IP_SHIFT1, IP_SHIFT2, IP_QBITS, IP_IQSHIFT,
-  IP_IQSCALE, IP_G1_0, IP_G1_1, IP_G2_0, IP_G2_1, IP_CSB0, IP_CSB1, IP_CBF1
+  IP_IQSCALE, IP_G1_0, IP_G1_1, IP_G2_0, IP_G2_1, IP_CSB0, IP_CSB1, IP_CBF1,
+  IP_NNMODE     // mode that takes the PNN prediction: 18, 35 or -1 (none)
 };
 enum { FP_QSCALE, FP_ERRSCALE, FP_LAM, FP_LAMCBF0, FP_CBF0 };
 
@@ -100,7 +109,8 @@ trial_modes_kernel(int b, const int* __restrict__ ref_top,
                    const int* __restrict__ ref_left,
                    const int* __restrict__ orig,
                    const float* __restrict__ mode_bits,
-                   const int* __restrict__ rate_rows, Tables T,
+                   const int* __restrict__ rate_rows,
+                   const int* __restrict__ nn_pred, Tables T,
                    float* __restrict__ cost_m, int* __restrict__ rec_m,
                    int* __restrict__ q_m, int* __restrict__ cnt_m) {
   constexpr int NN = N * N;
@@ -167,7 +177,8 @@ trial_modes_kernel(int b, const int* __restrict__ ref_top,
   __syncthreads();
 
   // ---- prediction of mode m and residual ----
-  const int* src = T.use_filt[m] ? flt : raw;
+  const bool is_nn = m == T.ip[IP_NNMODE] || m >= N_INTRA;
+  const int* src = !is_nn && T.use_filt[m] ? flt : raw;
   int dc = 0;
   if (m == 1) {
     for (int i = 1; i <= N; ++i) dc += raw[i] + raw[LEFT + i];
@@ -176,7 +187,9 @@ trial_modes_kernel(int b, const int* __restrict__ ref_top,
   for (int p = tid; p < NN; p += nth) {
     const int y = p / N, x = p % N;
     int v;
-    if (m == 0) {
+    if (is_nn) {
+      v = nn_pred != nullptr ? nn_pred[s * NN + p] : 0;
+    } else if (m == 0) {
       const int L = src[LEFT + 1 + y], TR = src[N + 1];
       const int Tp = src[1 + x], BL = src[LEFT + N + 1];
       v = ((L << LOG2N) + N + (x + 1) * (TR - L) + (Tp << LOG2N) +
@@ -455,11 +468,11 @@ __global__ void select_kernel(int nn, int n_modes,
 template <int N>
 void launch_modes(dim3 grid, cudaStream_t st, int b, const int* rt,
                   const int* rl, const int* orig, const float* mb,
-                  const int* rr, const Tables& T, float* cost_m, int* rec_m,
-                  int* q_m, int* cnt_m) {
+                  const int* rr, const int* nnp, const Tables& T,
+                  float* cost_m, int* rec_m, int* q_m, int* cnt_m) {
   const int threads = N * N < 256 ? N * N : 256;
   trial_modes_kernel<N><<<grid, threads, 0, st>>>(
-      b, rt, rl, orig, mb, rr, T, cost_m, rec_m, q_m, cnt_m);
+      b, rt, rl, orig, mb, rr, nnp, T, cost_m, rec_m, q_m, cnt_m);
 }
 
 }  // namespace
@@ -467,8 +480,8 @@ void launch_modes(dim3 grid, cudaStream_t st, int b, const int* rt,
 extern "C" int unit_trial(
     int n, int b, int n_modes, const void* ref_top, const void* ref_left,
     const void* orig, const void* mode_bits, const void* rate_rows,
-    const void* g0, const void* g1, const void* frac, const void* use_filt,
-    const void* tf, const void* ti, const void* scan, const void* sig0,
+    const void* nn_pred, const void* g0, const void* g1, const void* frac,
+    const void* use_filt, const void* tf, const void* ti, const void* scan, const void* sig0,
     const void* sig1, const void* sig0i, const void* sig1i,
     const void* lastpb, const void* iparams, const void* fparams,
     void* cost_m, void* rec_m, void* q_m, void* cnt_m, void* cost,
@@ -486,15 +499,28 @@ extern "C" int unit_trial(
   const int* og = (const int*)orig;
   const float* mb = (const float*)mode_bits;
   const int* rr = (const int*)rate_rows;
+  const int* nnp = (const int*)nn_pred;
   float* cm = (float*)cost_m;
   int* recm = (int*)rec_m;
   int* qm = (int*)q_m;
   int* cntm = (int*)cnt_m;
   switch (n) {
-    case 4: launch_modes<4>(grid, st, b, rt, rl, og, mb, rr, T, cm, recm, qm, cntm); break;
-    case 8: launch_modes<8>(grid, st, b, rt, rl, og, mb, rr, T, cm, recm, qm, cntm); break;
-    case 16: launch_modes<16>(grid, st, b, rt, rl, og, mb, rr, T, cm, recm, qm, cntm); break;
-    case 32: launch_modes<32>(grid, st, b, rt, rl, og, mb, rr, T, cm, recm, qm, cntm); break;
+    case 4:
+      launch_modes<4>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
+                     cntm);
+      break;
+    case 8:
+      launch_modes<8>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
+                     cntm);
+      break;
+    case 16:
+      launch_modes<16>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
+                      cntm);
+      break;
+    case 32:
+      launch_modes<32>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
+                      cntm);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t e = cudaGetLastError();

@@ -5,8 +5,8 @@ The port's copy of the JAX package's `ops/reference_samples.py` fill rules
 available iff it lies inside the picture and precedes the block in coding
 order; with no available unit the border is the DC value 128; a first gap
 back-fills from the first valid unit and later gaps replicate the last
-sample of the unit before.  The wavefront encoder computes the flags
-(`parallel/wavefront2._availability`) and runs the fill once per
+sample of the unit before.  `neighbor_unit_flags` gives HM's flags of
+every block position at once; the wavefront encoder runs the fill once per
 availability pattern at table-build time.  `FILTER_THRESHOLD` is
 `m_aucIntraFilter` for luma (`TComPrediction.cpp:43-56`).
 """
@@ -19,6 +19,32 @@ DC_FILL = 128
 UNIT = 4  # availability granularity in samples
 # m_aucIntraFilter (luma): threshold per size index log2(w)-2.
 FILTER_THRESHOLD = {4: 10, 8: 7, 16: 1, 32: 0, 64: 10}
+
+
+def neighbor_unit_flags(order4: np.ndarray, y, x, n: int, height: int,
+                        width: int, unit: int = UNIT) -> np.ndarray:
+    """Availability flags in HM line order of n x n blocks at (y, x).
+
+    The port's vectorised copy of the JAX package's `neighbor_unit_flags`
+    (`ops/reference_samples.py:38`): `y`, `x` are integer arrays of block
+    origins and `order4` the coding order of every 4x4 unit; a unit is
+    available iff it lies inside the picture and precedes the block in
+    coding order.  Returns bool (*y.shape, 2 * 2n/unit + 1) in the order
+    [left + below-left units bottom -> top, corner, above + above-right
+    units left -> right]."""
+    mine = order4[y // 4, x // 4]
+
+    def ok(py, px):
+        inside = (px >= 0) & (py >= 0) & (px < width) & (py < height)
+        o = order4[np.clip(py, 0, height - 1) // 4,
+                   np.clip(px, 0, width - 1) // 4]
+        return inside & (o < mine)
+
+    n_units = (2 * n) // unit
+    flags = [ok(y + 2 * n - unit - j * unit, x - 1) for j in range(n_units)]
+    flags.append(ok(y - 1, x - 1))
+    flags += [ok(y - 1, x + j * unit) for j in range(n_units)]
+    return np.stack(flags, axis=-1)
 
 
 def fill_reference_samples(recon: np.ndarray, x: int, y: int, n: int,

@@ -23,6 +23,11 @@ mode (the counts keep the JAX package's cbf=0 sig-bin bias).
 * `trial_apply` is the wrapper: CPU tensors go to the plain version, CUDA
   tensors to the kernel of `csrc/unit_trial.cu`.  `impl="plain"` asks for
   the plain version on the card (for comparing the two).
+
+Under the NN policies a PNN prediction `nn_pred` (b, n, n) takes the place
+of mode 18's prediction (`nn_policy="sub18"`, substitution) or fills the
+36th mode block (`"append"`, switch: PNNS, mode 35), as in the JAX
+package (`ops/unit_fused.py:426-430`); without one it is the zero block.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 M_PAD = 36          # mode blocks in the lane layout (35 + PNNS/dummy)
 BIG_COST = 3e38
+NN_MODE = {None: -1, "sub18": 18, "append": 35}   # mode block of nn_pred
 
 
 def _round_up(x, m):
@@ -304,12 +310,12 @@ def build_consts(n, n_modes, c, SB, lam, qscale, iq_scale, b_eff,
         SB={k: float(v) for k, v in SB.items()},
         dc_shift=n.bit_length(),      # >> (log2n + 1)
         **_kernel_tables(n, n_modes, c, groups > 1, lastpb, ipp, SB, lam,
-                         qscale, iq_scale),
+                         qscale, iq_scale, nn_policy),
     )
 
 
 def _kernel_tables(n, n_modes, c, compact, lastpb, ipp, SB, lam, qscale,
-                   iq_scale):
+                   iq_scale, nn_policy):
     """Raster-order tables and scalars of the CUDA kernel (`k_*` keys).
 
     The kernel predicts from the angular gather tables and transforms with
@@ -346,7 +352,8 @@ def _kernel_tables(n, n_modes, c, compact, lastpb, ipp, SB, lam, qscale,
             [n_modes, len(rows), int(c["shift1"]), int(c["shift2"]),
              int(c["qbits"]), int(c["iq_shift"]), int(iq_scale),
              sbi["g1_0"], sbi["g1_1"], sbi["g2_0"], sbi["g2_1"],
-             sbi["csb0"], sbi["csb1"], sbi["cbf1"], 0, 0], np.int32),
+             sbi["csb0"], sbi["csb1"], sbi["cbf1"], NN_MODE[nn_policy], 0],
+            np.int32),
         k_fparams=np.array(
             [f32(qscale), f32(c["err_scale"]), f32(lam),
              f32(lam * SB["cbf0"]), f32(SB["cbf0"]), 0.0, 0.0, 0.0],
@@ -410,13 +417,14 @@ def _i32_sum(x, dim):
     return (((s + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
 
 
-def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows):
+def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     """Core of the plain trial on (n^2, M*B)-layout values (lane m*B + j =
     mode m of slot j), all M_PAD mode blocks at once.
 
     comb (Rp, B) f32 references, orig_p (n^2, B) i32 in CG-grouped raster
     order, mode_row (1, M*B) f32, rate_rows (8, B) i32 live rate-state
-    micro-bit deltas.  Returns (cost (1, M*B) f32, rec, q (n^2, M*B) i32,
+    micro-bit deltas, nn_pred_p (n^2, B) i32 PNN prediction or None (the
+    zero block).  Returns (cost (1, M*B) f32, rec, q (n^2, M*B) i32,
     counts (8, M*B) i32).  Transcribes the JAX package's `_trial_blocks`
     (`ops/unit_fused.py:324-669`) operation by operation, float32 rounding
     included."""
@@ -477,8 +485,8 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows):
         blocks[10] = torch.where(y0, (blocks[10] + a10).clamp(0.0, 255.0),
                                  blocks[10])
     if tc["nn_policy"] is not None:
-        raise NotImplementedError("the port's trial covers the regular "
-                                  "policy (no PNN mode) so far")
+        blocks[NN_MODE[tc["nn_policy"]]] = (
+            0.0 if nn_pred_p is None else nn_pred_p.to(f32))
     preds = blocks.permute(1, 0, 2).reshape(nn, L)        # (nn, M*B) f32
 
     orig_rep = orig_p.repeat(1, M)                        # (nn, M*B) i32
@@ -673,14 +681,16 @@ def _argmin_blocks(cost, rec, q, cnt, B):
             cnt[:, cols])
 
 
-def fused_trial_math(tc, comb, orig_p, mode_row, rate_rows):
+def fused_trial_math(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     """Plain trial + argmin on padded (n^2, B) values: returns (cost (B,),
     best (B,), rec (n^2, B), q (n^2, B), counts (8, B))."""
-    cost, rec, q, cnt = _trial_blocks(tc, comb, orig_p, mode_row, rate_rows)
+    cost, rec, q, cnt = _trial_blocks(tc, comb, orig_p, mode_row, rate_rows,
+                                      nn_pred_p)
     return _argmin_blocks(cost, rec, q, cnt, comb.shape[1])
 
 
-def _plain_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows):
+def _plain_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows,
+                 nn_pred):
     n, nn = tc["n"], tc["nn"]
     b = ref_top.shape[0]
     comb = torch.cat([ref_top, ref_left], dim=1).to(torch.float32)
@@ -689,8 +699,11 @@ def _plain_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows):
     mb = torch.nn.functional.pad(mode_bits.to(torch.float32),
                                  (0, M_PAD - mode_bits.shape[1]))
     mode_row = mb.T.reshape(1, M_PAD * b)
+    nn_p = None if nn_pred is None else \
+        nn_pred.reshape(b, nn)[:, tc["pp"]].T.contiguous()
     cost, best, rec, q, cnt = fused_trial_math(
-        tc, comb.contiguous(), orig_p.contiguous(), mode_row, rate_rows)
+        tc, comb.contiguous(), orig_p.contiguous(), mode_row, rate_rows,
+        nn_p)
     ipp = tc["ipp"]
     return (cost, best, rec.T[:, ipp].reshape(b, n, n),
             q.T[:, ipp].reshape(b, n, n), cnt.T.contiguous())
@@ -716,19 +729,17 @@ def _check(name, t, shape, dtype, device):
                          f"{t.device} (contiguous={t.is_contiguous()})")
 
 
-def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows):
+def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows,
+                  nn_pred=None):
     from . import _cuda_build
 
-    lib = _cuda_build.load()
+    lib = _cuda_build.library("unit_trial")
     n, nn = tc["n"], tc["nn"]
     b = ref_top.shape[0]
     dev = ref_top.device
     if "k_g0" not in tc:
         raise ValueError("consts lack the kernel tables (k_*): build them "
                          "with this package's build_consts")
-    if tc["nn_policy"] is not None:
-        raise NotImplementedError("the kernel covers the regular policy "
-                                  "(no PNN mode) so far")
     i32, f32 = torch.int32, torch.float32
     n_modes = tc["n_modes"]
     _check("ref_top", ref_top, (b, 2 * n + 1), i32, dev)
@@ -736,6 +747,9 @@ def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows):
     _check("orig", orig, (b, n, n), i32, dev)
     _check("mode_bits", mode_bits, (b, n_modes), f32, dev)
     _check("rate_rows", rate_rows, (8, b), i32, dev)
+    if nn_pred is not None:
+        # Without one the kernel predicts the zero block for the PNN mode.
+        _check("nn_pred", nn_pred, (b, n, n), i32, dev)
     for k in ("k_g0", "k_g1", "k_frac", "k_use_filt", "k_tf", "k_ti",
               "k_scan", "k_sig0", "k_sig1", "k_sig0i", "k_sig1i",
               "k_lastpb", "k_iparams", "k_fparams"):
@@ -754,7 +768,7 @@ def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.unit_trial(
         n, b, n_modes, p(ref_top), p(ref_left), p(orig), p(mode_bits),
-        p(rate_rows),
+        p(rate_rows), None if nn_pred is None else p(nn_pred),
         p(tc["k_g0"]), p(tc["k_g1"]), p(tc["k_frac"]), p(tc["k_use_filt"]),
         p(tc["k_tf"]), p(tc["k_ti"]), p(tc["k_scan"]), p(tc["k_sig0"]),
         p(tc["k_sig1"]), p(tc["k_sig0i"]), p(tc["k_sig1i"]),
@@ -762,17 +776,19 @@ def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows):
         p(cost_m), p(rec_m), p(q_m), p(cnt_m),
         p(cost), p(best), p(rec), p(q), p(cnt), stream)
     if err != 0:
-        raise RuntimeError(f"unit_trial kernel (n={n}, b={b}) failed: "
-                           f"{_cuda_build.error_string(err)}")
+        raise RuntimeError(
+            f"unit_trial kernel (n={n}, b={b}) failed: "
+            f"{_cuda_build.error_string('unit_trial', err)}")
     launches[n] += 1
     return cost, best, rec, q, cnt
 
 
 def trial_apply(tc, ref_top, ref_left, orig, mode_bits, rate_rows=None,
-                impl="kernel"):
+                impl="kernel", nn_pred=None):
     """The fused trial of b units: ref_top/ref_left (b, 2n+1) i32, orig
     (b, n, n) i32, mode_bits (b, n_modes) f32, rate_rows (8, b) i32 live
-    rate-state deltas or None (static tables).  Returns (cost (b,) f32,
+    rate-state deltas or None (static tables), nn_pred (b, n, n) i32 PNN
+    prediction for the `nn_policy` mode or None (zeros).  Returns (cost (b,) f32,
     best (b,) i32, rec (b, n, n) i32, q (b, n, n) i32, counts (b, 8) i32).
 
     CPU tensors run the plain version.  CUDA tensors run the kernel, or the
@@ -785,7 +801,8 @@ def trial_apply(tc, ref_top, ref_left, orig, mode_bits, rate_rows=None,
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "plain" or ref_top.device.type == "cpu":
         return _plain_trial(tc, ref_top, ref_left, orig, mode_bits,
-                            rate_rows)
+                            rate_rows, nn_pred)
     if ref_top.device.type != "cuda":
         raise ValueError(f"no kernel for device {ref_top.device}")
-    return _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows)
+    return _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows,
+                         nn_pred)

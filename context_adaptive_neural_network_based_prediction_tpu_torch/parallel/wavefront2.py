@@ -1,4 +1,5 @@
-"""Wavefront v2 quadtree encoder (regular policy, CTB 32, one frame).
+"""Wavefront v2 quadtree encoder (CTB 32, one frame; regular, substitution
+and switch policies).
 
 The port of the JAX package's `parallel/wavefront2.py` for the
 configuration its benchmark times, one frame at a time.  CTBs run along
@@ -8,6 +9,16 @@ fused unit trial (`ops/unit_fused.py`, on the card the CUDA kernel of
 `ops/csrc/unit_trial.cu`).  The quadtree 32 -> 16 -> 8 (-> four 4x4 NxN
 PUs) is decided in the same pass, and with `rate_evolve` each CTB row
 carries live CABAC bin counts that steer later trials (WPP-style).
+
+NN policies (the JAX package's :974-1030): with `policy="substitution"`
+mode 18's prediction is the PNN's, with `policy="switch"` the PNN is a
+signalled 36th mode (PNNS, mode 35).  Each trial of a width with a model
+first extracts every slot's masked context from the evolving
+reconstruction (two box reads and static per-position strip masks) and
+runs the quantized integer forward (`models/pnn_q.py`, its merger on the
+card the CUDA kernel of `ops/csrc/merger_int.cu`) over all slots at once;
+integer sums make that batched forward equal to the sequential decoder's.
+Under switch a width without a model predicts zeros for PNNS.
 
 Skewed storage, as in the JAX package: the frame, the reconstruction, the
 8x8 mode map, the 8x8 cell costs and the rate state are kept as per-CTB-
@@ -28,7 +39,7 @@ buffer rather than quietly differing.
 The decided mode / level / split grids are per-step outputs ("ys"),
 assembled into grids on the host (`_assemble_arrays`), turned into CU
 trees and packed by the native CABAC packer.  Not ported yet: CTB 64,
-frame batching, the NN policies, halo sharding, streaming, Annex-B.
+frame batching, halo sharding, streaming, Annex-B.
 """
 
 from __future__ import annotations
@@ -40,11 +51,13 @@ import torch
 
 from ..codec import encoder as enc_mod
 from ..codec import native, rdo
+from ..models import pnn_q
 from ..ops import intra, transform, unit_fused
 from ..ops import reference_samples as rs
 from . import rate_model
 
 CTB = 32
+NN_SIZES = (4, 8, 16, 32)   # unit sizes a PNN can serve at CTB 32
 ROW0 = 1            # plane 0 is the (zero) halo plane above the first row
 RS_TMIN = 32        # rate-state bins needed before the live estimate counts
 
@@ -82,24 +95,11 @@ def _availability(height: int, width: int, n: int, ctb: int):
     block position in line order [left units bottom -> top, corner, above
     units left -> right].  A 4x4 unit is available iff it lies inside the
     picture and precedes the block in coding order."""
-    order4 = _coding_order4(height, width, ctb)
     nby, nbx = height // n, width // n
     yy = (np.arange(nby) * n)[:, None] + np.zeros((1, nbx), np.int64)
     xx = (np.arange(nbx) * n)[None, :] + np.zeros((nby, 1), np.int64)
-    mine = order4[yy // 4, xx // 4]
-
-    def ok(py, px):
-        inside = (px >= 0) & (py >= 0) & (px < width) & (py < height)
-        o = order4[np.clip(py, 0, height - 1) // 4,
-                   np.clip(px, 0, width - 1) // 4]
-        return inside & (o < mine)
-
-    n_units = (2 * n) // rs.UNIT
-    flags = [ok(yy + 2 * n - rs.UNIT - j * rs.UNIT, xx - 1)
-             for j in range(n_units)]
-    flags.append(ok(yy - 1, xx - 1))
-    flags += [ok(yy - 1, xx + j * rs.UNIT) for j in range(n_units)]
-    return np.stack(flags, axis=-1)
+    return rs.neighbor_unit_flags(_coding_order4(height, width, ctb), yy, xx,
+                                  n, height, width)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,6 +132,31 @@ def _fill_tables(height: int, width: int, n: int, ctb: int = CTB):
     tabs = rel[inv.reshape(-1)].reshape(nby, nbx, 2, 2, side)
     return (np.ascontiguousarray(tabs[:, :, 0]),
             np.ascontiguousarray(tabs[:, :, 1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _nn_ctx_tables(height: int, width: int, n: int, ctb: int = CTB):
+    """Static PNN-context availability tables for n x n units (JAX package
+    :137-170): ctx_ok (nby, nbx) bool (the anchor pixel (x-n, y-n) lies in
+    the picture, `TComPattern.cpp:109-175`), above_mask (nby, nbx, 3n) and
+    left_mask (nby, nbx, 2n) float32, the per-4-sample-strip copy gating of
+    `extraction_context.cpp` from the availability flags."""
+    flags = _availability(height, width, n, ctb)
+    nby, nbx = height // n, width // n
+    n_units = (2 * n) // rs.UNIT
+    y = (np.arange(nby) * n)[:, None]
+    x = (np.arange(nbx) * n)[None, :]
+    ctx_ok = (x - n >= 0) & (y - n >= 0)
+    on = ctx_ok[..., None]
+    amask = np.zeros((nby, nbx, 3 * n), np.float32)
+    lmask = np.zeros((nby, nbx, 2 * n), np.float32)
+    amask[:, :, :n] = on                 # above-left corner: always copied
+    for i in range(n_units):
+        amask[:, :, n + 4 * i:n + 4 * i + 4] = \
+            on & flags[:, :, n_units + 1 + i:n_units + 2 + i]
+        lmask[:, :, 4 * i:4 * i + 4] = \
+            on & flags[:, :, n_units - 1 - i:n_units - i]
+    return ctx_ok, amask, lmask
 
 
 def _skew_triplets(tt, tl, n, ctb, off):
@@ -181,10 +206,11 @@ def _dedupe(stacked):
     return ctab, inv.reshape(v, a, b).astype(np.int32)
 
 
-def _unit_consts(n: int, qp: int):
+def _unit_consts(n: int, qp: int, n_modes: int = 35):
     """The geometry-free part of the per-size constants: angular tables,
-    filter choice, transforms, quantiser shifts and static rate tables.
-    4x4 luma intra TUs use the DST-VII, all others the DCT-II."""
+    filter choice, transforms, quantiser shifts and static rate tables
+    (n_modes rows: under switch, PNNS residuals use mode 0's coefficient
+    scan).  4x4 luma intra TUs use the DST-VII, all others the DCT-II."""
     per, rem = qp // 6, qp % 6
     g0, g1, frac, _ = intra._angular_tables(n)
     use_filt = np.array(
@@ -196,6 +222,8 @@ def _unit_consts(n: int, qp: int):
     sig0, sig1 = rate_model.sig_bits_tables(qp, n)
     lastx, lasty = rate_model.last_bits_tables(qp, n)
     sgather, mode_scan = rate_model.scan_tables(n)
+    if n_modes == 36:
+        mode_scan = np.concatenate([mode_scan, mode_scan[:1]])
     inv_gather = np.empty_like(sgather)
     for st in range(3):
         inv_gather[st, sgather[st]] = np.arange(n * n, dtype=np.int32)
@@ -211,7 +239,7 @@ def _unit_consts(n: int, qp: int):
         iq_shift=6 - (tshift + per),
         err_scale=float(2.0 ** (-2.0 * tshift)
                         / float(transform.QUANT_SCALES[rem]) ** 2),
-        # Scan-domain rate tables, pre-gathered per mode: (35, n*n).
+        # Scan-domain rate tables, pre-gathered per mode: (n_modes, n*n).
         sig0=sig0[mode_scan], sig1=sig1[mode_scan],
         lastx=lastx, lasty=lasty,
         sg=sgather[mode_scan], inv_sg=inv_gather[mode_scan],
@@ -236,16 +264,23 @@ _GROUPS = {4: 1, 8: 1, 16: 6, 32: 36}
 
 def _build_wavefront2(height: int, width: int, qp: int,
                       lam_scale: float = 1.0, policy: str = "regular",
-                      ctb: int = CTB, enable_nxn: bool = True,
+                      bundle=None, ctb: int = CTB, enable_nxn: bool = True,
                       n_frames: int = 1, rate_evolve: bool = False) -> dict:
     """The encoder's plan: geometry, per-size constants and LUTs (numpy).
 
     Mirrors the table-building half of the JAX package's
-    `_build_wavefront2` (`parallel/wavefront2.py:208-535`) for the regular
-    policy, CTB 32, one frame and no halo; every table is equal to the JAX
-    package's."""
-    if policy != "regular":
-        raise NotImplementedError("the port covers the regular policy")
+    `_build_wavefront2` (`parallel/wavefront2.py:208-535`) for CTB 32, one
+    frame and no halo; every table is equal to the JAX package's.  NN
+    policies take a `PnnBundle` with quantized models."""
+    if policy not in ("regular", "substitution", "switch"):
+        raise ValueError(f"unknown policy {policy!r}")
+    if policy != "regular" and bundle is None:
+        raise ValueError("NN policies need a quantized PnnBundle")
+    qmodels = bundle.quantized_for_qp(qp) \
+        if bundle is not None and policy != "regular" else {}
+    if policy != "regular" and not qmodels:
+        raise ValueError("the bundle has no quantized models")
+    nn_widths = tuple(sorted(w for w in qmodels if w in NN_SIZES))
     if ctb != 32:
         raise NotImplementedError("the port covers CTB 32")
     if n_frames != 1:
@@ -253,7 +288,7 @@ def _build_wavefront2(height: int, width: int, qp: int,
     if height % ctb or width % ctb:
         raise ValueError(f"wavefront2 needs frame dims that are multiples "
                          f"of {ctb} (crop/pad first)")
-    n_modes = 35
+    n_modes = 36 if policy == "switch" else 35
     sbx, sby = width // ctb, height // ctb
     n_steps = (sbx - 1) + 2 * (sby - 1) + 1
     b_max = min(sby, (sbx + 1) // 2 + 1)
@@ -278,7 +313,7 @@ def _build_wavefront2(height: int, width: int, qp: int,
 
     size_consts = {}
     for n in (4, 8, 16, 32):
-        c = _unit_consts(n, qp)
+        c = _unit_consts(n, qp, n_modes)
         tt, tl = _fill_tables(height, width, n, ctb)
         ctab, cmap = _dedupe(np.stack([_skew_triplets(tt, tl, n, ctb,
                                                       OFF)]))
@@ -289,14 +324,32 @@ def _build_wavefront2(height: int, width: int, qp: int,
             # package's form); the port gathers with `sel` instead.
             onehot=(stab[:, :, None]
                     == np.arange(4 * n + 2)[None, None, :]).astype(np.int8))
+        if policy == "substitution" and n in nn_widths:
+            nnpol = "sub18"
+        elif n_modes == 36:
+            nnpol = "append"
+        else:
+            nnpol = None
         c["fused"] = unit_fused.build_consts(
             n, n_modes, c, SB, lam, qscale, iq_scale, b_eff,
-            nn_policy=None, groups=_GROUPS[n])
+            nn_policy=nnpol, groups=_GROUPS[n])
+        if n in nn_widths:
+            # Context availability classes (JAX package :438-460).
+            ctx_ok, am, lm = _nn_ctx_tables(height, width, n, ctb)
+            nn_tab, nn_cmap = _dedupe(np.stack([np.concatenate(
+                [ctx_ok[..., None].astype(np.float32), am, lm], -1)]))
+            q = qmodels[n]
+            c.update(nn_ok_c=nn_tab[:, 0] > 0.5,
+                     nn_am_c=nn_tab[:, 1:1 + 3 * n],
+                     nn_lm_c=nn_tab[:, 1 + 3 * n:], nn_cmap=nn_cmap, nn_q=q,
+                     nn_fc=str(np.asarray(q["kind"])) == "fc",
+                     nn_mean=bundle.mean_for(n))
         size_consts[n] = c
 
     plan = dict(height=height, width=width, qp=qp, lam=lam, ctb=ctb,
                 enable_nxn=enable_nxn, rate_evolve=rate_evolve,
-                n_modes=n_modes, sbx=sbx, sby=sby, n_steps=n_steps,
+                policy=policy, nn_widths=nn_widths, n_modes=n_modes,
+                sbx=sbx, sby=sby, n_steps=n_steps,
                 b_max=b_max, b_eff=b_eff, OFF=OFF, W_sk=W_sk, WIN=WIN,
                 PH=PH, n_planes=n_planes, cu8=cu8, OFF8=OFF8, W8=W8,
                 SB=SB, MODE_BITS=MODE_BITS, size_consts=size_consts)
@@ -332,11 +385,11 @@ def _schedule(sby, sbx, b_max, n_steps, t_offset=0):
     return by, bx, ok
 
 
-def _sel_index(plan, n):
-    """(n_steps, n_sub, b, 2(2n+1)) int64: for every step, every n x n
-    sub-stage (in the order `_z_offsets(ctb, n)` gives) and every slot,
-    the raw-strip index of each reference sample."""
-    c = plan["size_consts"][n]
+def _substage_classes(plan, n, cmap):
+    """(n_steps, n_sub, b) int: the class (of a (1, nby, nbx) class map) of
+    the n x n unit of every step, sub-stage (in the order
+    `_z_offsets(ctb, n)` gives) and slot; slots off the frame take the
+    clipped position, as the JAX package's gathers clip."""
     ctb, b = plan["ctb"], plan["b_eff"]
     by, bx, _ = _schedule(plan["sby"], plan["sbx"], b, plan["n_steps"])
     un = ctb // n
@@ -344,18 +397,30 @@ def _sel_index(plan, n):
     for ly, lx in _z_offsets(ctb, n):
         by_n = np.clip(by * un + ly // n, 0, plan["height"] // n - 1)
         bx_n = np.clip(bx * un + lx // n, 0, plan["width"] // n - 1)
-        out.append(c["sel"][c["smap"][0, by_n, bx_n]])   # (T, b, S)
-    return np.stack(out, axis=1).astype(np.int64)
+        out.append(cmap[0, by_n, bx_n])                    # (T, b)
+    return np.stack(out, axis=1)
 
 
 def _device_plan(plan, device):
     """The plan's tensors on `device`: per-size trial constants, reference
-    selection indices, mode-bit and rate-state LUTs."""
-    dp = {"trial": {}, "sel": {}}
+    selection indices per (step, sub-stage, slot), mode-bit and rate-state
+    LUTs, and for each NN width the model's tensors and the context masks
+    per (step, sub-stage, slot)."""
+    dp = {"trial": {}, "sel": {}, "nn": {}}
     for n in (4, 8, 16, 32):
-        dp["trial"][n] = unit_fused.consts_from_numpy(
-            plan["size_consts"][n]["fused"], device=device)
-        dp["sel"][n] = torch.from_numpy(_sel_index(plan, n)).to(device)
+        c = plan["size_consts"][n]
+        dp["trial"][n] = unit_fused.consts_from_numpy(c["fused"],
+                                                      device=device)
+        sel = c["sel"][_substage_classes(plan, n, c["smap"])]
+        dp["sel"][n] = torch.from_numpy(sel.astype(np.int64)).to(device)
+        if n in plan["nn_widths"]:
+            cls = _substage_classes(plan, n, c["nn_cmap"])
+            dp["nn"][n] = dict(
+                q=pnn_q.params_from_numpy(c["nn_q"], device),
+                fc=c["nn_fc"], mean=c["nn_mean"],
+                ok=torch.from_numpy(c["nn_ok_c"][cls]).to(device),
+                am=torch.from_numpy(c["nn_am_c"][cls]).to(device),
+                lm=torch.from_numpy(c["nn_lm_c"][cls]).to(device))
     _, bx, _ = _schedule(plan["sby"], plan["sbx"], plan["b_eff"],
                          plan["n_steps"])
     dp["bx"] = torch.from_numpy(bx.astype(np.int32)).to(device)
@@ -371,19 +436,23 @@ _PLAN_CACHE_MAX = 4
 
 
 def _get_plan(height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-              device):
+              device, policy="regular", bundle=None):
+    """The cached (plan, device plan).  The key holds every argument the
+    plan reads, the bundle by identity; an entry keeps its bundle alive,
+    so the identity stays valid."""
     key = (height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-           str(device))
+           str(device), policy, id(bundle))
     hit = _PLAN_CACHE.get(key)
     if hit is None:
-        plan = _build_wavefront2(height, width, qp, lam_scale, ctb=ctb,
+        plan = _build_wavefront2(height, width, qp, lam_scale, policy=policy,
+                                 bundle=bundle, ctb=ctb,
                                  enable_nxn=enable_nxn,
                                  rate_evolve=rate_evolve)
-        hit = (plan, _device_plan(plan, device))
+        hit = (plan, _device_plan(plan, device), bundle)
         _PLAN_CACHE[key] = hit
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
             _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
-    return hit
+    return hit[0], hit[1]
 
 
 def _box(buf, p0, np_, r0, nr, c0, nc):
@@ -484,7 +553,7 @@ def _step(plan, dp, st, ys, t, impl):
         return refs[:, :s].contiguous(), refs[:, s:].contiguous()
 
     def mode_bits_b(ly, lx):
-        """MPM-aware per-slot mode-bit estimates (b, 35) from the
+        """MPM-aware per-slot mode-bit estimates (b, n_modes) from the
         8-granularity mode map."""
         m8 = st["mode8"]
         ly8 = ly // 8
@@ -510,16 +579,51 @@ def _step(plan, dp, st, ys, t, impl):
         is0 = ids == mpms[0][None]
         ismpm = is0 | (ids == mpms[1][None]) | (ids == mpms[2][None])
         which = torch.where(is0, 0, torch.where(ismpm, 1, 3))
-        return dp["mode_bits"][which].T.contiguous()        # (b, 35) f32
+        base = dp["mode_bits"][which].T                     # (b, 35) f32
+        if plan["n_modes"] == 36:
+            # Every normal mode pays pnns_flag = 0, PNNS only the flag
+            # (TEncSbac::codeIntraDirLumaAng switch bin order).
+            return torch.cat([base + f32c(SB["pnns0"]), pnns1_col], dim=1)
+        return base.contiguous()
+
+    def nn_predict_b(n, ly, lx):
+        """Every slot's PNN prediction (b, n, n): the above (n, 3n) and
+        left (2n, n) context portions read from the evolving
+        reconstruction, masked per 4-sample strip, one quantized forward
+        over all slots; zeros where the context is unavailable
+        (TComPrediction.cpp:645-663)."""
+        nd = dp["nn"][n]
+        up = 1 if ly == 0 else 0                 # planes up for the above
+        above_pix = _box(work, by0 + ROW0 - up, b,
+                         ctb - n if ly == 0 else ly - n, n,
+                         lx - n - 2 * ctb * up + OFF, 3 * n)
+        left_pix = _box(work, by0 + ROW0, b, ly, 2 * n, lx - n + OFF, n)
+        mean = f32c(nd["mean"])
+        am = nd["am"][t, sub[n]]
+        lm = nd["lm"][t, sub[n]]
+        above_f = (above_pix.to(f32) - mean) * am[:, None, :]
+        left_f = (left_pix.to(f32) - mean) * lm[:, :, None]
+        if nd["fc"]:
+            inp = torch.cat([above_f.reshape(b, -1), left_f.reshape(b, -1)],
+                            dim=1)
+        else:
+            inp = (above_f[..., None], left_f[..., None])
+        pred = pnn_q.predict_pixels_q(nd["q"], inp, n, nd["fc"], mean,
+                                      impl=impl)
+        return torch.where(nd["ok"][t, sub[n]][:, None, None], pred,
+                           0).contiguous()
 
     def encode_unit_b(n, ly, lx):
         ref_top, ref_left = refs_for_b(n, ly, lx)
         orig = _box(st["frame"], by0, b, ly, n, t * ctb + lx + OFF,
                     n).contiguous()
         mbits = mode_bits_b(ly, lx)
+        # Under switch, a width without a model predicts zeros for PNNS
+        # (nn_pred None).
+        nn_pred = nn_predict_b(n, ly, lx) if n in plan["nn_widths"] else None
         out = unit_fused.trial_apply(dp["trial"][n], ref_top, ref_left,
                                      orig, mbits, rate_rows_by_n[n],
-                                     impl=impl)
+                                     impl=impl, nn_pred=nn_pred)
         sub[n] += 1
         return out
 
@@ -537,6 +641,10 @@ def _step(plan, dp, st, ys, t, impl):
 
     def zeros8():
         return torch.zeros((b, 8), dtype=i32, device=dev)
+
+    if plan["n_modes"] == 36:
+        pnns1_col = torch.full((b, 1), f32c(SB["pnns1"]), dtype=f32,
+                               device=dev)
 
     # lambda * structure-flag bits, rounded to float32 as JAX rounds its
     # weak-typed Python constants.
@@ -836,37 +944,41 @@ def _prepare_device(device):
 
 
 def encode_arrays_wavefront2(frame_uint8: np.ndarray, qp: int, *,
-                             lam_scale: float = 1.0, ctb: int = CTB,
+                             lam_scale: float = 1.0, policy: str = "regular",
+                             pnn=None, ctb: int = CTB,
                              enable_nxn: bool = True,
                              rate_evolve: bool = False, device="cuda",
                              impl: str = "kernel"):
     """The device half of `encode_frame_wavefront2`: returns (recon
     (H, W) uint8, grids), grids being `_assemble_arrays`' tuple.
-    `impl="plain"` runs the plain trial on the card (for comparing)."""
+    `impl="plain"` runs the plain versions of the kernels on the card (for
+    comparing)."""
     device = _prepare_device(device)
+    bundle = getattr(pnn, "bundle", pnn)
     h, w = frame_uint8.shape
     plan, dp = _get_plan(h, w, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-                         device)
+                         device, policy=policy, bundle=bundle)
     recon, ys = run(plan, dp, frame_uint8, impl=impl)
     return recon, _assemble_arrays(ys, h, w, ctb)
 
 
 def encode_frame_wavefront2(frame_uint8: np.ndarray, qp: int, *,
                             serialize: bool = True, lam_scale: float = 1.0,
-                            policy: str = "regular", ctb: int = CTB,
-                            enable_nxn: bool = True,
+                            policy: str = "regular", pnn=None,
+                            ctb: int = CTB, enable_nxn: bool = True,
                             rate_evolve: bool = False, device="cuda"):
     """Quadtree wavefront encode -> EncodeResult (own bitstream).
 
-    The port covers the regular policy at CTB 32, one frame per call.
+    `policy` in {regular, substitution, switch}; the NN policies take `pnn`,
+    a `codec.nn_intra.PnnBundle` with quantized models (or an object with
+    such a `.bundle`).  The port covers CTB 32, one frame per call.
     `rate_evolve` turns on the live rate-state evolution (the JAX
     package reads its default from `CANP_RATE_EVOLVE`; the port takes it
     as an argument only).  Runs on `device` ("cuda" by default; "cpu"
-    runs the plain PyTorch trial)."""
-    if policy != "regular":
-        raise NotImplementedError("the port covers the regular policy")
+    runs the plain PyTorch versions of the kernels)."""
     recon, grids = encode_arrays_wavefront2(
-        frame_uint8, qp, lam_scale=lam_scale, ctb=ctb, enable_nxn=enable_nxn,
-        rate_evolve=rate_evolve, device=device)
+        frame_uint8, qp, lam_scale=lam_scale, policy=policy, pnn=pnn,
+        ctb=ctb, enable_nxn=enable_nxn, rate_evolve=rate_evolve,
+        device=device)
     return _arrays_to_result(frame_uint8, qp, (recon,) + grids, policy,
                              serialize, ctb=ctb)

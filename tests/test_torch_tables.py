@@ -5,7 +5,10 @@ context tables, the static rate model, the unit-trial constants
 (`build_consts`), the wavefront geometry tables (`_coding_order4`,
 `_fill_tables`), and every table the wavefront encoder builds for a frame
 (`size_consts`, the rate-evolution LUTs, the scalar bits), the latter read
-from the JAX package's built encoder.
+from the JAX package's built encoder, also under the NN policies with the
+frozen singles zoo (the PNN-context tables `_nn_ctx_tables`, their
+classes, the 36-mode rate tables and the trial constants of `sub18` and
+`append`).
 """
 
 import inspect
@@ -15,13 +18,19 @@ import numpy as np
 import pytest
 
 from context_adaptive_neural_network_based_prediction_tpu.codec import (
-    cabac as j_cabac, contexts as j_contexts, rdo as j_rdo)
+    cabac as j_cabac, contexts as j_contexts, nn_intra as j_nn_intra,
+    rdo as j_rdo)
+from context_adaptive_neural_network_based_prediction_tpu.models import (
+    pnn_q as j_pnn_q)
 from context_adaptive_neural_network_based_prediction_tpu.ops import (
     transform as j_transform, unit_fused as j_unit_fused)
 from context_adaptive_neural_network_based_prediction_tpu.parallel import (
     rate_model as j_rate_model, wavefront2 as j_wavefront2)
 from context_adaptive_neural_network_based_prediction_tpu_torch.codec import (
-    cabac as t_cabac, contexts as t_contexts, rdo as t_rdo)
+    cabac as t_cabac, contexts as t_contexts, nn_intra as t_nn_intra,
+    rdo as t_rdo)
+from context_adaptive_neural_network_based_prediction_tpu_torch.models import (
+    pnn_q as t_pnn_q)
 from context_adaptive_neural_network_based_prediction_tpu_torch.ops import (
     unit_fused as t_unit_fused)
 from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import (
@@ -160,6 +169,82 @@ def test_encoder_scalars_and_luts(encoder_tables, name):
     assert_same(jax_vars[name], plan[name], name)
     assert jax_vars["RS_TMIN"] == t_wavefront2.RS_TMIN
     assert jax_vars["ROW0"] == t_wavefront2.ROW0
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("h,w", [(64, 96), (128, 128), (96, 224)])
+def test_nn_ctx_tables(h, w, n):
+    for i, (a, b) in enumerate(zip(
+            j_wavefront2._nn_ctx_tables(h, w, n, 32),
+            t_wavefront2._nn_ctx_tables(h, w, n, 32))):
+        assert_same(a, b, f"nn ctx table {i}")
+
+
+def closure_vars(fn):
+    """The filled closure cells of `fn` by name (the NN step closes over
+    cells that are still empty when the encoder is built)."""
+    out = {}
+    for name, cell in zip(fn.__code__.co_freevars, fn.__closure__):
+        try:
+            out[name] = cell.cell_contents
+        except ValueError:
+            pass
+    return out
+
+
+FROZEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "frozen")
+
+
+@pytest.fixture(scope="module")
+def nn_encoder_tables():
+    """For each NN policy, the size_consts of the JAX package's built
+    encoder (128x128, QP 32, CTB 32, NxN, fused trial) with the frozen
+    singles zoo, and the port's plan for the same frame and bundle."""
+    quantized = {w: j_pnn_q.load_quantized(os.path.join(
+        FROZEN, f"qpnn_w{w}_single.npz")) for w in (4, 8, 16, 32)}
+    j_bundle = j_nn_intra.PnnBundle(
+        {}, {w: str(q["kind"]) == "fc" for w, q in quantized.items()},
+        86.85680942771248, quantized=quantized)
+    t_bundle = t_nn_intra.PnnBundle(
+        {w: t_pnn_q.load_quantized(os.path.join(
+            FROZEN, f"qpnn_w{w}_single.npz")) for w in (4, 8, 16, 32)},
+        86.85680942771248)
+    out = {}
+    old = os.environ.get("CANP_FUSED_UNIT")
+    os.environ["CANP_FUSED_UNIT"] = "xla"
+    try:
+        for policy in ("switch", "substitution"):
+            run = j_wavefront2._build_wavefront2(
+                128, 128, 32, 1.0, policy, j_bundle, ctb=32,
+                enable_nxn=True, n_frames=1, rate_evolve=False)
+            step = closure_vars(run.__wrapped__)["step"]
+            jax_vars = closure_vars(step)
+            plan = t_wavefront2._build_wavefront2(
+                128, 128, 32, policy=policy, bundle=t_bundle)
+            out[policy] = (jax_vars, plan)
+    finally:
+        if old is None:
+            del os.environ["CANP_FUSED_UNIT"]
+        else:
+            os.environ["CANP_FUSED_UNIT"] = old
+    return out
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("policy", ["switch", "substitution"])
+def test_nn_encoder_size_consts(nn_encoder_tables, policy, n):
+    jax_vars, plan = nn_encoder_tables[policy]
+    assert plan["n_modes"] == jax_vars["n_modes"]
+    assert plan["nn_widths"] == jax_vars["nn_widths"] == (4, 8, 16, 32)
+    want = dict(jax_vars["size_consts"][n])
+    want_fused = want.pop("fused")
+    got = plan["size_consts"][n]
+    assert_same(want, got, f"{policy} size_consts[{n}]")
+    assert_same({k: v for k, v in want_fused.items() if k != "_pcall"},
+                got["fused"], f"{policy} size_consts[{n}]['fused']")
+    assert got["fused"]["nn_policy"] == (
+        "append" if policy == "switch" else "sub18")
 
 
 def test_schedule():

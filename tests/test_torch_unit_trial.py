@@ -7,8 +7,11 @@ the same cost (bit for bit), mode, reconstruction, levels and CABAC bin
 counts, for every unit size, random and worst-case residuals, and nonzero
 live rate-state rows (which the JAX package's own tests never feed).  It
 runs once from the port's tables and once from the JAX package's tables,
-so a difference in the tables and one in the math show up apart.  The
-CUDA kernel is held against the plain trial in `tests/test_torch_cuda.py`.
+so a difference in the tables and one in the math show up apart.  With a
+PNN prediction the trial is held under both NN policies, `sub18` (it
+replaces mode 18) and `append` (it is the 36th mode, PNNS), for every
+unit size.  The CUDA kernel is held against the plain trial in
+`tests/test_torch_cuda.py`.
 """
 
 import numpy as np
@@ -31,6 +34,9 @@ from test_unit_fused import make_size_consts
 
 GROUPS = {4: 1, 8: 1, 16: 6, 32: 36}
 CASES = [(4, 22), (4, 37), (8, 27), (8, 42), (16, 32), (32, 32)]
+NN_CASES = [(n, policy) for n in (4, 8, 16, 32)
+            for policy in ("sub18", "append")]
+NN_QP = 37
 FIELDS = ("cost", "best", "rec", "q", "counts")
 B = 12
 
@@ -68,17 +74,61 @@ def trial_inputs(n, qp, b=B):
              (mb, np.float32), (rr, np.int32))]
 
 
-def consts(n, qp, tables):
+def consts(n, qp, tables, nn_policy=None):
     SB = rate_model.scalar_bits(qp)
     lam = rdo.lambda_for_qp(qp)
     qs = transform.QUANT_SCALES[qp % 6]
     iqs = transform.INV_QUANT_SCALES[qp % 6]
+    n_modes = 36 if nn_policy == "append" else 35
     if tables == "jax":
-        mod, c = j_unit_fused, make_size_consts(n, qp, 35)
+        mod, c = j_unit_fused, make_size_consts(n, qp, n_modes)
     else:
-        mod, c = t_unit_fused, t_wavefront2._unit_consts(n, qp)
-    return mod.build_consts(n, 35, c, SB, lam, qs, iqs, b_eff=B,
-                            groups=GROUPS[n])
+        mod, c = t_unit_fused, t_wavefront2._unit_consts(n, qp, n_modes)
+    return mod.build_consts(n, n_modes, c, SB, lam, qs, iqs, b_eff=B,
+                            nn_policy=nn_policy, groups=GROUPS[n])
+
+
+def nn_inputs(n, policy):
+    """trial_inputs with a mode-bit row per mode (36 under append) and a
+    PNN prediction: the original plus small noise in slots 0-5 (so the PNN
+    mode wins there), random content in slots 6-9, 0 and 255 in the last
+    two."""
+    rt, rl, og, _, rr = trial_inputs(n, NN_QP)
+    rng = np.random.default_rng(77 * n + len(policy))
+    n_modes = 36 if policy == "append" else 35
+    mb = rng.uniform(1.0, 6.0, (B, n_modes)).astype(np.float32)
+    nnp = np.clip(og + rng.integers(-3, 4, og.shape), 0, 255)
+    nnp[6:10] = rng.integers(0, 256, (4, n, n))
+    nnp[10], nnp[11] = 0, 255
+    return rt, rl, og, mb, rr, nnp.astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def jax_nn_results():
+    out = {}
+    for n, policy in NN_CASES:
+        rt, rl, og, mb, rr, nnp = nn_inputs(n, policy)
+        got = j_unit_fused.trial_apply(
+            consts(n, NN_QP, "jax", policy), jnp.asarray(rt),
+            jnp.asarray(rl), jnp.asarray(og), jnp.asarray(mb),
+            jnp.asarray(nnp), impl="xla", rate_rows=jnp.asarray(rr))
+        out[(n, policy)] = [np.asarray(x) for x in got]
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_nn_results():
+    out = {}
+    for n, policy in NN_CASES:
+        rt, rl, og, mb, rr, nnp = [torch.from_numpy(x)
+                                   for x in nn_inputs(n, policy)]
+        for tables in ("port", "jax"):
+            tc = t_unit_fused.consts_from_numpy(
+                consts(n, NN_QP, tables, policy), device="cpu")
+            got = t_unit_fused.trial_apply(tc, rt, rl, og, mb, rr,
+                                           nn_pred=nnp)
+            out[(n, policy, tables)] = [x.numpy() for x in got]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -122,6 +172,30 @@ def test_trial_matches_jax(jax_results, port_results, n, qp, tables, field):
     if field == "cost":
         want, got = want.view(np.int32), got.view(np.int32)
     np.testing.assert_array_equal(got, want, err_msg=f"{field} n={n}")
+
+
+@pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("tables", ["port", "jax"])
+@pytest.mark.parametrize("n,policy", NN_CASES)
+def test_trial_with_nn_pred_matches_jax(jax_nn_results, port_nn_results, n,
+                                        policy, tables, field):
+    """Zero tolerance, as above, with the PNN prediction in mode 18
+    (`sub18`) or in the 36th mode (`append`)."""
+    i = FIELDS.index(field)
+    want = jax_nn_results[(n, policy)][i]
+    got = port_nn_results[(n, policy, tables)][i]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if field == "cost":
+        want, got = want.view(np.int32), got.view(np.int32)
+    np.testing.assert_array_equal(got, want, err_msg=f"{field} n={n}")
+
+
+@pytest.mark.parametrize("n,policy", NN_CASES)
+def test_nn_mode_is_chosen(port_nn_results, n, policy):
+    """The near-perfect PNN predictions of slots 0-5 win there, so the
+    comparisons above cover the PNN mode's whole trial."""
+    best = port_nn_results[(n, policy, "port")][1]
+    assert (best[:6] == (18 if policy == "sub18" else 35)).any()
 
 
 def test_rate_rows_change_decisions(port_results):
