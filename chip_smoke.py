@@ -2,23 +2,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at 1080p (1056x1920, QP 32, CTB 32, NxN, live
-rate evolution, one frame) through the entry points a user calls: the
-regular policy, and the `switch` policy (the PNN as a signalled 36th mode)
-with the frozen singles zoo (`artifacts/frozen/qpnn_w{4,8,16,32}_single.npz`,
-no pair models, mean 86.8568 of
-`artifacts/training_set/luminance/means/mean_training.pkl` for every
-width).  It holds each hand-written kernel against its plain PyTorch
-version.  Phases, each printing one line with its seconds:
+Drives the port's two encode paths at 1080p (1056x1920, QP 32, CTB 32,
+NxN, live rate evolution, one frame) through the entry points a user
+calls: the regular policy, and the `switch` policy (the PNN as a signalled
+36th mode) with the frozen singles zoo
+(`artifacts/frozen/qpnn_w{4,8,16,32}_single.npz`, no pair models, mean
+86.8568 of `artifacts/training_set/luminance/means/mean_training.pkl` for
+every width); and the float PNN prediction path (Tables I-V,
+`evaluation/prediction_comparison.compare_on_channels`) on the 1080p
+frame's luma with the six float singles of the chip copy.  It holds each
+hand-written kernel against its plain PyTorch version.  Phases, each
+printing one line with its seconds:
 
   0  the device (torch and nvidia-smi); no CUDA device -> exit 1
   1  builds, all started together: nvcc of each CUDA source (the unit
-     trial, the PNN's integer merger) and g++ of the CABAC packer
+     trial, the PNN's integer merger, the float FC layer, the float
+     merger) and g++ of the CABAC packer; registers and spills per kernel
   2  kernel vs plain on the card: the unit trial for n = 4, 8, 16, 32 (31
      slots, seeded random inputs with nonzero rate rows, and extreme
      residuals), also with a PNN prediction under `sub18` and `append`;
      the merger for M = 32, 64, 128, 256 maps (31 slots, random inputs
-     and inputs at the PNN's caps): every output exactly equal
+     and inputs at the PNN's caps): every output exactly equal.  The float
+     FC chain at w = 4, 8, float32 and bfloat16 weights, N = 1, 7, 128,
+     200, 2048 (max error <= 1e-4 of max |plain|); the float merger at
+     M = 32 ... 512, N = 1, 31, 256, 2048, with and without the
+     activation (<= 1e-5)
   3  the small reference frames (64x96 synthetic, 128x128 natural) through
      the kernel path, regular (tests/golden_torch/w2_rate_evolve.json) and
      NN policies (tests/golden_torch/w2_nn.json), against the digests
@@ -35,12 +43,26 @@ version.  Phases, each printing one line with its seconds:
      which must equal the PNN calls of the step loop
   7  the same switch encode through the plain trial and plain merger:
      identical to phase 6
-  8  per kernel, on phase-4 and phase-6 inputs: launches, max abs error,
-     ms per call (CUDA events, calls queued back to back), the kernels'
-     own device time (profiler), plain ms, bound ms, and for the merger
-     the time of a float64 `torch.bmm` of the same shapes (library ms);
-     per PNN width, the whole forward of one sub-stage: ms per call and
-     the device activities the profiler sees
+  9  (runs before 8) the float prediction path on the card, per float
+     single (w4/w8 FC, w4/w8 refconv, w16, w32): the forward on the
+     natural frame's seeded contexts and the bf16 kernels against the JAX
+     package's goldens (tests/golden_torch/float_pnn.*; masked contexts
+     equal, forward <= 1e-4 of max |JAX|, FC <= 1e-4, merger <= 1e-5), its
+     `compare_on_channels` rows (within 0.01 dB, win frequency within
+     2/N); then `compare_on_channels` on the 1080p luma with 2048
+     positions and the four default masks: PSNR rows, seconds, and
+     kernel launches, which must equal the forwards' chunk calls
+  8  per kernel, on phase-4, phase-6 and phase-9 inputs: launches, max abs
+     error, ms per call (CUDA events, calls queued back to back), the
+     kernels' own device time (profiler), plain ms, bound ms, and the
+     time of one library call of the same function where there is one
+     (library ms): a float64 `torch.bmm` for the integer merger, a float32
+     `torch.matmul` chain (TF32 off) for the FC PNN, a float32
+     `torch.bmm` for the float merger; the FC PNN and float merger also
+     at the serving shapes of `scripts/profile_mfu.py` (bf16 weights, w8
+     FC and the w16 merger at batch 256 and 2048); per PNN width, the
+     whole quantized forward of one sub-stage: ms per call and the device
+     activities the profiler sees
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero.  It imports
@@ -83,6 +105,15 @@ MERGER_SOURCE = ("context_adaptive_neural_network_based_prediction_tpu_torch/"
 MERGER_REPLACES = ("context_adaptive_neural_network_based_prediction_tpu/ops/"
                    "pallas/merger_int.py:63")
 NN_MAPS = {4: 32, 8: 64, 16: 128, 32: 256}      # merger maps per PNN width
+PORT = "context_adaptive_neural_network_based_prediction_tpu_torch/"
+FC_SOURCE = PORT + "ops/csrc/fc_forward.cu"
+FC_REPLACES = ("context_adaptive_neural_network_based_prediction_tpu/ops/"
+               "pallas/fc_forward.py:83")
+FMERGER_SOURCE = PORT + "ops/csrc/merger.cu"
+FMERGER_REPLACES = ("context_adaptive_neural_network_based_prediction_tpu/"
+                    "ops/pallas/merger.py:69")
+FLOAT_POSITIONS = 2048      # compare_on_channels positions on the 1080p luma
+SERVING_BATCHES = (256, 2048)   # scripts/profile_mfu.py's FC / merger rows
 MANIFEST = os.path.join(REPO, "artifacts", "frozen", "manifest_quantized.txt")
 MEAN_PKL = os.path.join(REPO, "artifacts", "training_set", "luminance",
                         "means", "mean_training.pkl")
@@ -234,6 +265,31 @@ def max_abs_err(a, b):
     return err
 
 
+def check_close(got, want, tol, what):
+    """max |got - want| / max |want|; raises above `tol`."""
+    err = ((got.double() - want.double()).abs().max()
+           / want.double().abs().max().clamp_min(1e-30)).item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: kernel differs from plain by {err:.3e}"
+                             f" of max |plain| (tolerance {tol:g})")
+    return err
+
+
+def fc_layers(rng, w, dtype, dev):
+    """Seeded FC PNN layers at width w: weights with the JAX package's init
+    distributions, small random biases."""
+    import torch
+
+    dims = [(5 * w * w, 1200), (1200, 1200), (1200, 1200), (1200, w * w)]
+    ws, bs = [], []
+    for (k, d), sd in zip(dims, (0.01, 0.029, 0.029, 0.01)):
+        ws.append(torch.from_numpy(rng.normal(0, sd, (k, d)).astype(
+            np.float32)).to(dev, dtype))
+        bs.append(torch.from_numpy(rng.normal(0, 0.1, d).astype(
+            np.float32)).to(dev))
+    return ws, bs
+
+
 def assert_equal(a, b, what, names=("cost", "best", "rec", "q", "counts")):
     import torch
 
@@ -260,7 +316,8 @@ def main():
     from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
         import native
     from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
-        import _cuda_build, merger_int, transform, unit_fused
+        import (_cuda_build, fc_forward, merger, merger_int, transform,
+                unit_fused)
     from context_adaptive_neural_network_based_prediction_tpu_torch.parallel \
         import wavefront2
 
@@ -302,6 +359,10 @@ def main():
             sec = _build_dir.seconds.get(name)
             say(f"build {name}: "
                 + (f"{sec:.2f} s" if sec is not None else "cached"))
+        for name in _cuda_build.NAMES:
+            for line in _build_dir.output.get(name, "").splitlines():
+                if "registers" in line or "spill" in line:
+                    say(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
     # ---- phase 2: kernels vs plain ----
     with Phase("2 kernel vs plain"):
@@ -353,6 +414,39 @@ def main():
                 torch.cuda.synchronize()
                 assert_equal(got, want, f"merger M={m} extreme={extreme}")
             say(f"merger M={m}: kernel == plain on {b} slots (random, caps)")
+        for w in (4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                ws, bs = fc_layers(rng, w, dtype, dev)
+                worst = 0.0
+                for n in (1, 7, 128, 200, 2048):
+                    x = torch.from_numpy(rng.normal(0, 30, (
+                        n, 5 * w * w)).astype(np.float32)).to(dev)
+                    got = fc_forward.fc_forward(x, ws, bs)
+                    want = fc_forward.fc_forward(x, ws, bs, impl="plain")
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_close(
+                        got, want, 1e-4, f"fc w={w} {dtype} N={n}"))
+                say(f"fc_forward w={w} {dtype}: kernel == plain within "
+                    f"{worst:.2e} of max |plain| at N = 1, 7, 128, 200, "
+                    f"2048")
+        for m in (32, 64, 128, 256, 512):
+            worst = 0.0
+            for n in (1, 31, 256, 2048):
+                x, w, bb = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                            for a in (rng.normal(0, 1, (n, 80, m)),
+                                      rng.normal(0, 0.1, (80, 16, m)),
+                                      rng.normal(0, 0.1, (16, m)))]
+                for act in (False, True):
+                    got = merger.merger_forward(x, w, bb, act=act)
+                    want = merger.merger_forward(x, w, bb, act=act,
+                                                 impl="plain")
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_close(
+                        got, want, 1e-5, f"float merger M={m} N={n} "
+                        f"act={act}"))
+            say(f"float merger M={m}: kernel == plain within {worst:.2e} "
+                f"of max |plain| at N = 1, 31, 256, 2048, with and without "
+                f"the activation")
 
     # ---- phase 3: small frames against the JAX package's digests ----
     bundles = nn_bundles()
@@ -527,6 +621,100 @@ def main():
         say(f"1080p switch plain path: device half {sw_p[3]:.3f} s; recon, "
             f"11 grids and stream identical to the kernel path")
 
+    # ---- phase 9 (before 8): the float prediction path ----
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .evaluation import float_golden, prediction_comparison
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import zoo
+
+    orig_fc, orig_fmerger = fc_forward.fc_forward, merger.merger_forward
+
+    def capture_fc(x, weights, biases, impl="kernel"):
+        key = ("fc", x.shape[1])        # one path input set per width
+        if key not in captured:
+            captured[key] = (x.clone(), weights, biases)
+        return orig_fc(x, weights, biases, impl=impl)
+
+    def capture_fmerger(x, w, b, act=False, impl="kernel"):
+        key = ("fmerger", x.shape[2])   # one path input set per M
+        if key not in captured:
+            captured[key] = (x.clone(), w, b, act)
+        return orig_fmerger(x, w, b, act=act, impl=impl)
+
+    float_launches, float_seconds = {}, {}
+    with Phase("9 float path"):
+        golden = float_golden.load(REPO)
+        for key, err in float_golden.check_pallas(golden, dev).items():
+            tol = 1e-4 if key.startswith("fc") else 1e-5
+            if not err <= tol:
+                raise AssertionError(f"{key}: bf16 kernel differs from the "
+                                     f"JAX package's Pallas kernel by {err}")
+            say(f"{key} (bf16 weights) vs the JAX package's Pallas kernel "
+                f"(interpret mode): {err:.2e} of max |Pallas|")
+        luma = frame[None, :, :, None]
+        with open(MEAN_PKL, "rb") as f:
+            mean = float(pickle.load(f))
+        for name in float_golden.MODELS:
+            rep = float_golden.check_model(golden, name, dev)
+            cmp = float_golden.check_comparison(golden, name, dev)
+            if not (rep["contexts_equal"] and rep["forward_rel_err"] <= 1e-4
+                    and cmp["max_psnr_diff"] <= 0.01
+                    and cmp["max_win_diff"] <= 2 / cmp["n"]):
+                raise AssertionError(f"{name}: differs from the JAX "
+                                     f"package's goldens: {rep}, {cmp}")
+            say(f"{name}: natural frame vs the JAX package's goldens: masked "
+                f"contexts equal, forward {rep['forward_rel_err']:.2e} of max "
+                f"|JAX|, comparison rows within {cmp['max_psnr_diff']:.2e} dB"
+                f" and {cmp['max_win_diff']:.4f} win frequency")
+            w = float_golden.model_width(name)
+            params, is_fc = zoo.load_frozen_params(os.path.join(
+                REPO, "artifacts", "frozen", name + ".npz"))
+            torch.cuda.synchronize()
+            fc_forward.reset_launch_counts()
+            merger.reset_launch_counts()
+            fc_forward.fc_forward = capture_fc
+            merger.merger_forward = capture_fmerger
+            t0 = time.perf_counter()
+            try:
+                rows = prediction_comparison.compare_on_channels(
+                    luma, w, params, is_fc, mean,
+                    nb_positions_per_image=FLOAT_POSITIONS, device=dev)
+                torch.cuda.synchronize()
+            finally:
+                fc_forward.fc_forward = orig_fc
+                merger.merger_forward = orig_fmerger
+            float_seconds[name] = time.perf_counter() - t0
+            got = {("fc", k): v for k, v in fc_forward.launches.items()}
+            got.update({("merger", k): v
+                        for k, v in merger.launches.items()})
+            want = {k: v * len(prediction_comparison.DEFAULT_VAL_MASKS)
+                    for k, v in float_golden.forward_launches(
+                        name, FLOAT_POSITIONS).items()}
+            float_launches[name] = got
+            if got != want:
+                raise AssertionError(f"{name}: kernel launches {got} != the "
+                                     f"forwards' chunk calls {want}")
+            for r in rows:
+                vals = (r.mean_psnr_pnn, r.mean_psnr_hevc_best,
+                        r.pnn_win_frequency)
+                if not (np.all(np.isfinite(vals)) and 10 < vals[0] < 60
+                        and 10 < vals[1] < 60 and 0 <= vals[2] <= 1):
+                    raise AssertionError(f"{name}: implausible row {r}")
+                say(f"{name} 1080p masks ({r.width_mask_above}, "
+                    f"{r.height_mask_left}): PNN {r.mean_psnr_pnn:.4f} dB, "
+                    f"best HEVC {r.mean_psnr_hevc_best:.4f} dB, PNN wins "
+                    f"{r.pnn_win_frequency:.4f}")
+            say(f"{name} 1080p compare_on_channels: "
+                f"{float_seconds[name]:.3f} s, {FLOAT_POSITIONS} positions x "
+                f"{len(rows)} masks, kernel launches {got} (the forwards' "
+                f"chunk calls)")
+            busy_ms, top = device_breakdown(
+                lambda: prediction_comparison.compare_on_channels(
+                    luma, w, params, is_fc, mean,
+                    nb_positions_per_image=FLOAT_POSITIONS, device=dev))
+            say(f"{name} 1080p compare_on_channels under the profiler: "
+                f"device busy {busy_ms} ms; by time: {top}")
+
     # ---- phase 8: per-kernel numbers at the main paths' shapes ----
     with Phase("8 kernel timing"):
         rows = []
@@ -559,6 +747,7 @@ def main():
                 sw_mergers[m], max_abs_err([got], [want]),
                 lambda: call("kernel"), lambda: call("plain"), bound_ms,
                 bound_by, library_ms, ("merger_int_kernel",)))
+        rows += float_kernel_rows(captured, float_launches, dev)
         for r in rows:
             say(f"{r['name']}: {r['launches']} launches, {r['ms']:.4f} ms "
                 f"per call (kernels on the card {r['device_ms']} ms; plain "
@@ -580,7 +769,7 @@ def main():
                 f"the switch path")
         if all(r["device_ms"] is not None for r in rows):
             busy_t = sum(r["device_ms"] * r["launches"] for r in rows[:4])
-            busy_m = sum(r["device_ms"] * r["launches"] for r in rows[4:])
+            busy_m = sum(r["device_ms"] * r["launches"] for r in rows[4:8])
             sw_t = sum(r["device_ms"] * sw_trials[n]
                        for r, n in zip(rows[:4], (4, 8, 16, 32)))
             say(f"1080p kernel path: trial kernels busy {busy_t / 1e3:.3f} s "
@@ -590,6 +779,16 @@ def main():
                 f"{sw_t / 1e3:.3f} s, merger kernels {busy_m / 1e3:.3f} s of "
                 f"the {t_dev_s:.3f} s device half "
                 f"({(sw_t + busy_m) / 10 / t_dev_s:.1f}%)")
+            for r in rows[8:]:
+                if r["name"].endswith("_path"):
+                    calls = r["launches"] // r["launches_per_call"]
+                    say(f"{r['name']}: kernels busy "
+                        f"{r['device_ms'] * calls / 1e3:.4f} s of the 1080p "
+                        f"comparison ({calls} calls)")
+    for name, sec in float_seconds.items():
+        say(f"float path {name}: 1080p compare_on_channels {sec:.3f} s")
+    for r in rows:
+        r.pop("launches_per_call", None)
     say(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     say(json.dumps({"kernels": rows}))
     say(smi)
@@ -608,6 +807,134 @@ def kernel_row(name, source, replaces, launches, err, fn, plain_fn,
         plain_ms=time_launches(plain_fn, reps=10), bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
         device_ms=kernel_device_ms(fn, device_keys))
+
+
+def float_kernel_rows(captured, float_launches, dev):
+    """Rows of the float PNN's kernels: the FC chain (w4, w8) and the float
+    merger (M = 32, 64, 128, 256) on the inputs of the 1080p comparison's
+    first chunk (float32 weights, N = 1024), and the serving shapes of
+    `scripts/profile_mfu.py` (bf16 weights of the frozen w8 FC and w16
+    models, w8 FC and M = 128 merger at batch 256 and 2048, seeded
+    inputs).  Serving rows carry the path's launch count of the kernel at
+    that width."""
+    import torch
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import zoo
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import fc_forward, merger
+
+    rng = np.random.default_rng(77)
+    rows = []
+    fc_models = {80: "pnn_w4_fc_single", 320: "pnn_w8_fc_single"}
+    merger_models = {32: "pnn_w4_refconv_single",
+                     64: "pnn_w8_refconv_single", 128: "pnn_w16_single",
+                     256: "pnn_w32_single"}
+
+    def fc_row(name, x, ws, bs, launches):
+        call = lambda impl: fc_forward.fc_forward(x, ws, bs, impl=impl)
+        got, want = call("kernel"), call("plain")
+        check_close(got, want, 1e-4, name)
+        wf = [w.float() for w in ws]
+
+        def lib():
+            h = x
+            for i, (w, b) in enumerate(zip(wf, bs)):
+                h = torch.matmul(h, w) + b
+                if i < len(wf) - 1:
+                    h = torch.maximum(0.1 * h, h)
+            return h
+
+        check_close(lib(), want, 1e-4, name + " (library chain)")
+        bound_ms, bound_by = fc_bound_ms(x, ws, bs)
+        row = kernel_row(name, FC_SOURCE, FC_REPLACES, launches,
+                         max_abs_err([got], [want]), lambda: call("kernel"),
+                         lambda: call("plain"), bound_ms, bound_by,
+                         time_launches(lib), ("fc_layer_kernel",))
+        row["launches_per_call"] = len(ws)
+        rows.append(row)
+
+    def merger_row(name, x, w, b, act, launches):
+        call = lambda impl: merger.merger_forward(x, w, b, act=act, impl=impl)
+        got, want = call("kernel"), call("plain")
+        check_close(got, want, 1e-5, name)
+        xm = x.permute(2, 0, 1).contiguous()                  # (M, N, P)
+        wm = w.float().permute(2, 0, 1).contiguous()          # (M, P, O)
+        lib = torch.bmm(xm, wm).permute(1, 2, 0) + b
+        if act:
+            lib = torch.maximum(0.1 * lib, lib)
+        check_close(lib, want, 1e-5, name + " (library bmm)")
+        bound_ms, bound_by = fmerger_bound_ms(x, w, b)
+        row = kernel_row(name, FMERGER_SOURCE, FMERGER_REPLACES, launches,
+                         max_abs_err([got], [want]), lambda: call("kernel"),
+                         lambda: call("plain"), bound_ms, bound_by,
+                         time_launches(lambda: torch.bmm(xm, wm)),
+                         ("merger_kernel",))
+        row["launches_per_call"] = 1
+        rows.append(row)
+
+    for k_in, model in fc_models.items():
+        x, ws, bs = captured[("fc", k_in)]
+        w = int(round((k_in / 5) ** 0.5))
+        fc_row(f"fc_forward_w{w}_n{x.shape[0]}_path", x, ws, bs,
+               sum(float_launches[model].values()))
+    for m, model in merger_models.items():
+        x, w, b, act = captured[("fmerger", m)]
+        merger_row(f"merger_m{m}_n{x.shape[0]}_path", x, w, b, act,
+                   float_launches[model][("merger", m)])
+    for model, kind in (("pnn_w8_fc_single", "fc"),
+                        ("pnn_w16_single", "merger")):
+        params, _ = zoo.load_frozen_params(os.path.join(
+            REPO, "artifacts", "frozen", model + ".npz"))
+        tp = zoo.params_from_numpy(params, dev, torch.bfloat16)
+        for n in SERVING_BATCHES:
+            if kind == "fc":
+                fc = tp["fully_connected"]
+                x = torch.from_numpy(rng.normal(0, 30, (n, 320)).astype(
+                    np.float32)).to(dev)
+                fc_row(f"fc_forward_w8_n{n}_bf16_serving", x,
+                       [fc[f"weights_{i}"] for i in range(4)],
+                       [fc[f"biases_{i}"] for i in range(4)],
+                       sum(float_launches[model].values()))
+            else:
+                cm = tp["convolutional"]["merger"][
+                    "channelwise_fully_connected_merger"]
+                x = torch.from_numpy(rng.normal(0, 1, (n, 80, 128)).astype(
+                    np.float32)).to(dev)
+                merger_row(f"merger_m128_n{n}_bf16_serving", x,
+                           cm["weights"], cm["biases"], True,
+                           float_launches[model][("merger", 128)])
+    return rows
+
+
+def fc_bound_ms(x, ws, bs):
+    """The least time of one FC chain: x, the weights and biases read once
+    and the (N, w^2) output written once over the HBM rate, against the
+    chain's multiply-adds (two operations each) at the float32 rate
+    outside the tensor cores."""
+    n = x.shape[0]
+    moved = x.numel() * 4 + sum(t.numel() * t.element_size()
+                                for t in list(ws) + list(bs)) \
+        + n * ws[-1].shape[1] * 4
+    t_bytes = moved / HBM_BPS
+    t_ops = 2 * n * sum(w.shape[0] * w.shape[1] for w in ws) / F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fmerger_bound_ms(x, w, b):
+    """The least time of one float merger call: x, w, b read once and the
+    (N, O, M) output written once over the HBM rate, against N*P*O*M
+    multiply-adds (two operations each) at the float32 rate outside the
+    tensor cores."""
+    n, p, m = x.shape
+    o = w.shape[1]
+    moved = sum(t.numel() * t.element_size() for t in (x, w, b)) \
+        + n * o * m * 4
+    t_bytes = moved / HBM_BPS
+    t_ops = 2 * n * p * o * m / F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_launches(fn, reps=50, warm=3):
@@ -670,6 +997,31 @@ def device_activity(fn, reps=5):
         return None, None
     us = sum(e.time_range.elapsed_us() for e in evs)
     return len(evs) / reps, us / reps / 1e3
+
+
+def device_breakdown(fn, n_top=4):
+    """One profiled call of `fn`: (device ms of all its CUDA activities,
+    the `n_top` largest by name as "name ms (count)"), or (None, None) if
+    the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == cuda:
+            us, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    if not by_name:
+        return None, None
+    total = sum(us for us, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    return total, "; ".join(f"{name[:60]} {us / 1e3:.3f} ms ({k})"
+                            for name, (us, k) in top)
 
 
 def card_int32_rate():

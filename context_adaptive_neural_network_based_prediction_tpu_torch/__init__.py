@@ -3,12 +3,16 @@
 A second package beside the JAX package
 `context_adaptive_neural_network_based_prediction_tpu`, which stays the
 reference: the port imports `torch` and numpy and none of the JAX package.
-Its subpackages carry the same names (`codec/`, `ops/`, `parallel/`).
-The first slice is the wavefront encoder
-`parallel.wavefront2.encode_frame_wavefront2` (regular policy, CTB 32,
-one frame), with the fused unit trial as a hand-written CUDA kernel
-(`ops/csrc/unit_trial.cu`).  Entry points take a `device` argument that
-defaults to "cuda"; the CPU runs only the plain PyTorch versions.
+Its subpackages carry the same names (`codec/`, `data/`, `evaluation/`,
+`models/`, `ops/`, `parallel/`, `utils/`, `cli/`).  Ported: the wavefront
+encoder `parallel.wavefront2.encode_frame_wavefront2` (CTB 32, one frame;
+regular, `switch` and `substitution` policies), with the fused unit trial
+and the quantized PNN's integer merger as hand-written CUDA kernels
+(`ops/csrc/unit_trial.cu`, `merger_int.cu`); and the float PNN prediction
+path `evaluation.prediction_comparison.compare_on_channels`, with the FC
+layers and the float merger as CUDA kernels (`ops/csrc/fc_forward.cu`,
+`merger.cu`).  Entry points take a `device` argument that defaults to
+"cuda"; the CPU runs only the plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

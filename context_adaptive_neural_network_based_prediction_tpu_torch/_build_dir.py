@@ -4,7 +4,9 @@ Libraries go to `_build/` inside the package (listed in `.gitignore`), one
 file per hash of the sources and the compile command, so an unchanged tree
 does not rebuild.  A build writes a temporary file and renames it into
 place, so processes that build at the same time do not see a half-written
-library.  `seconds` records how long each build of this process took.
+library.  `seconds` records how long each build of this process took, and
+`output` what its compiler printed (for nvcc, the `-Xptxas -v` register
+and spill counts).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import time
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 seconds: dict[str, float] = {}
+output: dict[str, str] = {}
 
 
 def build_once(name: str, sources, command) -> str:
@@ -46,4 +49,5 @@ def build_once(name: str, sources, command) -> str:
         if os.path.exists(tmp):
             os.unlink(tmp)
     seconds[name] = time.perf_counter() - t0
+    output[name] = proc.stdout + proc.stderr
     return out

@@ -1,12 +1,17 @@
-"""Loading the frozen quantized PNN zoo into a `PnnBundle`.
+"""The PNN zoo: frozen models, loading onto a device, batched inference.
 
 The port's copy of `parse_manifest` (JAX package `cli/export_pnn.py:36`)
 and of the quantized half of `load_codec_bundle` (`models/zoo.py:77`):
 the three-key manifests ("width,is_pair,channel,path" lines, the
 reference's `paths_to_graphs_output/*.txt` format) name one frozen integer
-model per (width, single | pair).  Float models are not read here.
-`load_bundle_npz` reads a bundle kept in one file (the test bundle of
-`tests/golden_torch/`).
+model per (width, single | pair).  `load_bundle_npz` reads a bundle kept
+in one file (the test bundle of `tests/golden_torch/`).
+
+Float models: `load_frozen_params` (`models/zoo.py:60`) reads a frozen
+float `.npz` into the JAX package's nested dict of numpy arrays,
+`params_from_numpy` carries such a dict onto a device in the port's
+layouts, and `predict_by_batch` (`models/zoo.py:40`) runs `pnn.forward`
+over any number of examples in chunks of 1024, returning numpy.
 """
 
 from __future__ import annotations
@@ -14,8 +19,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
-from . import pnn_q
+from . import pnn, pnn_q
 
 
 def parse_manifest(path: str) -> dict:
@@ -74,3 +80,92 @@ def load_bundle_npz(path: str):
                 v.item() if name == "kind" else v
         mean = float(data["mean"])
     return PnnBundle(quantized, mean)
+
+
+# ------------------------------------------------------------ float zoo ----
+
+def load_frozen_params(path: str):
+    """A frozen float .npz ("scope/.../name" keys) -> (nested dict of numpy
+    arrays, is_fully_connected)."""
+    with np.load(path) as data:
+        params: dict = {}
+        for key in data.files:
+            node = params
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = np.asarray(data[key])
+    return params, "fully_connected" in params
+
+
+def _leaf_to_tensor(path, a, device, weight_dtype):
+    """One float parameter in the port's layout: conv weights TF (k, k, in,
+    out) and transpose-conv weights TF (k, k, out, in) both become (dim 3,
+    dim 2, k, k), i.e. (out, in, k, k) and (in, out, k, k); merger weights
+    (M, P, O) -> (P, O, M) and biases (M, O) -> (O, M); FC and merger
+    weights in `weight_dtype`, everything else float32."""
+    a = np.asarray(a, np.float32)
+    name, scope = path[-1], path[-2] if len(path) > 1 else ""
+    dtype = torch.float32
+    if scope == "channelwise_fully_connected_merger":
+        a = a.transpose(1, 2, 0) if name == "weights" else a.T
+        dtype = weight_dtype if name == "weights" else torch.float32
+    elif name == "weights" and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    elif name.startswith("weights_"):
+        dtype = weight_dtype
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
+
+
+def params_from_numpy(params: dict, device="cuda",
+                      weight_dtype=torch.float32) -> dict:
+    """The JAX package's nested float params (numpy arrays, or anything
+    `np.asarray` takes) -> the same nesting of tensors on `device`, laid out
+    for `pnn.forward`.  `weight_dtype` (float32 or bfloat16) is the storage
+    of the two kernels' weights (the FC layers and the merger); the
+    convolutions stay float32."""
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weight_dtype must be float32 or bfloat16, got "
+                         f"{weight_dtype}")
+    dev = torch.device(device)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return _leaf_to_tensor(path, node, dev, weight_dtype)
+
+    return walk(params, ())
+
+
+def _params_device(params) -> torch.device:
+    node = params
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node.device
+
+
+def predict_by_batch(params: dict, inputs, width_target: int,
+                     is_fully_connected: bool,
+                     batch_size: int = 1024) -> np.ndarray:
+    """Chunked inference of `params_from_numpy` params over numpy inputs
+    (a flattened-context array for FC nets, an (above, left) tuple for
+    conv nets) -> (N, w, w, 1) float32 numpy.  Each chunk is copied to the
+    params' device and back."""
+    dev = _params_device(params)
+    if is_fully_connected:
+        n = inputs.shape[0]
+        get = lambda lo, hi: torch.from_numpy(
+            np.ascontiguousarray(inputs[lo:hi], np.float32)).to(dev)
+    else:
+        above, left = inputs
+        n = above.shape[0]
+        get = lambda lo, hi: tuple(
+            torch.from_numpy(np.ascontiguousarray(a[lo:hi], np.float32)).to(
+                dev) for a in (above, left))
+    outs = []
+    for lo in range(0, n, batch_size):
+        hi = min(lo + batch_size, n)
+        outs.append(pnn.forward(params, get(lo, hi), width_target,
+                                is_fully_connected).cpu().numpy())
+    return np.concatenate(outs, axis=0)

@@ -3,13 +3,19 @@ libraries, bound with ctypes).
 
 Each source is compiled by its own nvcc process, for sm_90a, into the
 port's build directory at first use; `load` starts all of them together
-and waits (a few seconds; nothing includes PyTorch's headers).
-`--fmad=false` keeps every float a*b+c rounded twice, as the plain
-version computes it.  A failed build raises with the compiler's output;
+and waits (a few seconds; nothing includes PyTorch's headers).  Flags
+are given per source: the unit trial is built with `--fmad=false`, which
+keeps every float a*b+c rounded twice, as its plain version computes it
+(the integer merger keeps the flag it was first built with); the float
+PNN kernels are held to a tolerance and keep nvcc's fused multiply-adds,
+at twice the rate.  `-Xptxas -v` puts each kernel's registers and spills
+in `_build_dir.output`.  A failed build raises with the compiler's output;
 nothing falls back.
 
   unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`)
   merger_int.cu   the PNN's integer merger (`merger_int.merger_int_forward`)
+  fc_forward.cu   the float FC PNN's layers (`fc_forward.fc_forward`)
+  merger.cu       the float channelwise merger (`merger.merger_forward`)
 """
 
 from __future__ import annotations
@@ -22,9 +28,13 @@ import threading
 from .. import _build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-NAMES = ("unit_trial", "merger_int")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"unit_trial": ("--fmad=false",),
+                "merger_int": ("--fmad=false",),
+                "fc_forward": (),
+                "merger": ()}
+NAMES = tuple(SOURCE_FLAGS)
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -41,16 +51,18 @@ def nvcc() -> str:
 def build(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     return _build_dir.build_once(
-        name, (src,), lambda out: [nvcc(), *NVCC_FLAGS, "-o", out, src])
+        name, (src,), lambda out: [nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS[name],
+                                   "-o", out, src])
 
 
 def _bind(name: str, path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "unit_trial":
-        lib.unit_trial.argtypes = [ci, ci, ci] + [vp] * 30
-    else:
-        lib.merger_int.argtypes = [ci, ci, ci, ci] + [vp] * 5
+    lib_args = {"unit_trial": [ci, ci, ci] + [vp] * 30,
+                "merger_int": [ci, ci, ci, ci] + [vp] * 5,
+                "fc_forward": [ci] * 5 + [vp] * 5,
+                "merger": [ci] * 6 + [vp] * 5}
+    getattr(lib, name).argtypes = lib_args[name]
     getattr(lib, name).restype = ci
     err = getattr(lib, f"{name}_error_string")
     err.restype = ctypes.c_char_p
@@ -86,6 +98,16 @@ def load() -> dict:
 def library(name: str):
     """The loaded library of `csrc/<name>.cu`."""
     return load()[name]
+
+
+def check_tensor(name, t, shape, dtypes, device):
+    """Raises ValueError unless `t` is a contiguous tensor of one of
+    `dtypes`, of `shape`, on `device`: what a kernel takes as a pointer."""
+    if t.device != device or t.dtype not in dtypes \
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: want contiguous {dtypes} {tuple(shape)} "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} (contiguous={t.is_contiguous()})")
 
 
 def error_string(name: str, err: int) -> str:

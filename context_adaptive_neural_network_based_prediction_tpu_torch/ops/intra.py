@@ -1,9 +1,17 @@
-"""HEVC angular intra-prediction tables (numpy).
+"""HEVC intra prediction: the angular tables (numpy) and the 35 modes of
+a batch of blocks (PyTorch, on the blocks' device).
 
 The port's copy of `_angular_tables` of the JAX package's `ops/intra.py`
 (HM-16.15 `TComPrediction.cpp` angle and inverse-angle tables): for every
 angular mode 2..34 and pixel, the two reference indices and the 1/32
 fraction of the interpolation.  The fused unit trial predicts from them.
+
+`predict_all_modes` (JAX package :265, body `_jitted_predict` :109-169)
+predicts all 35 modes of N blocks from their references with one gather
+and exact int32 arithmetic, bit for bit the JAX package's;
+`predict_best_mode` (:323) keeps the max-PSNR mode of each block.
+Reference layout: ref_top[n] = [corner, top_0, ..., top_{2w-1}] and
+ref_left[n] = [corner, left_0, ..., left_{2w-1}] (length 2w + 1 each).
 """
 
 from __future__ import annotations
@@ -11,10 +19,15 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
+PLANAR_IDX = 0
+DC_IDX = 1
 HOR_IDX = 10
 VER_IDX = 26
 NB_MODES = 35
+# HM: MAXIMUM_INTRA_FILTERED_{WIDTH,HEIGHT} = 16.
+MAX_INTRA_FILTERED = 16
 # HM-16.15 angular tables (TComPrediction.cpp); index = |angle mode|.
 ANG_TABLE = (0, 2, 5, 9, 13, 17, 21, 26, 32)
 INV_ANG_TABLE = (0, 4096, 1638, 910, 630, 482, 390, 315, 256)
@@ -81,3 +94,83 @@ def _angular_tables(width: int):
                 frac[mi, y, x] = f
     assert g0.max() < n_ext and g0.min() >= 0
     return g0, g1, frac, tuple(modes)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(width: int, device: str):
+    g0, g1, frac, _ = _angular_tables(width)
+    return tuple(torch.from_numpy(a).to(device) for a in
+                 (g0.astype(np.int64), g1.astype(np.int64), frac))
+
+
+def predict_all_modes(ref_top, ref_left, *, filtered_edges: bool = True):
+    """All 35 HEVC intra modes of a batch of square blocks.
+
+    ref_top, ref_left: (N, 2w+1) integer tensors (module convention), on
+    the device that computes.  `filtered_edges` applies HM's luma DC
+    filtering and H/V edge filters (w <= 16).  Returns (N, 35, w, w) int32
+    in [0, 255]; index m is HM mode m (0 planar, 1 DC, 2-34 angular)."""
+    w = (ref_top.shape[1] - 1) // 2
+    if tuple(ref_top.shape) != tuple(ref_left.shape) \
+            or ref_top.shape[1] != 2 * w + 1:
+        raise ValueError("ref_top/ref_left must be (N, 2w+1).")
+    ref_top = ref_top.to(torch.int32)
+    ref_left = ref_left.to(torch.int32)
+    n = ref_top.shape[0]
+    s = int(np.log2(w))
+    g0, g1, f = _tables_on(w, str(ref_top.device))
+    comb = torch.cat([ref_top, ref_left], dim=1)              # (N, 4w+2)
+    ang = ((32 - f) * comb[:, g0] + f * comb[:, g1] + 16) >> 5  # (N, 33, w, w)
+    filt = filtered_edges and w <= MAX_INTRA_FILTERED
+    if filt:
+        # Mode 26: first column += (left[y] - corner) >> 1; mode 10: first
+        # row += (top[x] - corner) >> 1; both clipped to [0, 255].
+        col_adj = (ref_left[:, 1:w + 1] - ref_left[:, 0:1]) >> 1
+        ang[:, VER_IDX - 2, :, 0] = torch.clamp(
+            ang[:, VER_IDX - 2, :, 0] + col_adj, 0, 255)
+        row_adj = (ref_top[:, 1:w + 1] - ref_top[:, 0:1]) >> 1
+        ang[:, HOR_IDX - 2, 0, :] = torch.clamp(
+            ang[:, HOR_IDX - 2, 0, :] + row_adj, 0, 255)
+
+    top_w = ref_top[:, 1:w + 1]
+    left_w = ref_left[:, 1:w + 1]
+    dc = ((top_w.sum(1) + left_w.sum(1) + w) // (2 * w)).to(torch.int32)
+    dc_blk = dc[:, None, None].expand(n, w, w).clone()
+    if filt:
+        dc_blk[:, 0, :] = (top_w + 3 * dc[:, None] + 2) >> 2
+        dc_blk[:, :, 0] = (left_w + 3 * dc[:, None] + 2) >> 2
+        dc_blk[:, 0, 0] = (top_w[:, 0] + left_w[:, 0] + 2 * dc + 2) >> 2
+
+    t = top_w[:, None, :]
+    lft = left_w[:, :, None]
+    tr = ref_top[:, w + 1][:, None, None]
+    bl = ref_left[:, w + 1][:, None, None]
+    xs = torch.arange(w, dtype=torch.int32, device=ref_top.device)
+    hor = (lft << s) + w + (xs[None, None, :] + 1) * (tr - lft)
+    ver = (t << s) + (xs[None, :, None] + 1) * (bl - t)
+    planar = (hor + ver) >> (s + 1)
+    return torch.cat([planar[:, None], dc_blk[:, None], ang],
+                     dim=1).to(torch.int32)
+
+
+def predict_best_mode(ref_top, ref_left, targets):
+    """Sweeps all 35 modes and keeps the max-PSNR mode of each block; ties
+    go to the lowest mode.  targets (N, w, w) integer tensor on the
+    references' device.  Returns (best predictions (N, w, w) int32, best
+    modes (N,) int64, their PSNRs (N,) float32).
+
+    PSNR = 10 log10(255^2 / (MSE + 1e-6)) in float32, as the JAX package
+    computes it; the MSE's sum of squared errors is exact (int64) and then
+    divided in float32.  The JAX package sums in float32, which is exact
+    below 2^24 (every w <= 16); at w = 32 its sum can round, and a
+    near-tied mode can differ."""
+    preds = predict_all_modes(ref_top, ref_left)          # (N, 35, w, w)
+    n, _, w, _ = preds.shape
+    err = preds - targets.to(torch.int32)[:, None]
+    sse = (err * err).to(torch.int64).sum(dim=(2, 3)).to(torch.float32)
+    mse = sse / torch.full_like(sse, float(w * w))
+    psnr = 10.0 * torch.log10(torch.full_like(mse, 255.0 ** 2)
+                              / (mse + 1.0e-6))
+    best = torch.argmax(psnr, dim=1)
+    rows = torch.arange(n, device=preds.device)
+    return preds[rows, best], best, psnr[rows, best]

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _cuda_build
+
 # Launches of the CUDA kernel, per map count M, counted where the wrapper
 # launches it.  `reset_launch_counts` empties it.
 launches: dict = {}
@@ -40,16 +42,10 @@ def merger_plain(x, w, b):
 
 
 def _check(name, t, shape, dtype, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device} (contiguous={t.is_contiguous()})")
+    _cuda_build.check_tensor(name, t, shape, (dtype,), device)
 
 
 def _kernel(x, w, b):
-    from . import _cuda_build
-
     lib = _cuda_build.library("merger_int")
     n, p, m = x.shape
     o = w.shape[1]

@@ -31,8 +31,24 @@ frame, on the two test frames (the synthetic 64x96 frame of
   for every width), at the first QP of (32, 37) at which the `switch`
   encode codes a PU with the PNN mode.
 
+`--set float` writes `tests/golden_torch/float_pnn.npz` and
+`float_pnn.json`, the float prediction path's goldens, on the 128x128
+natural crop, for each float single of the chip copy
+(`artifacts/frozen/pnn_w{4,8}_fc_single`, `pnn_w{4,8}_refconv_single`,
+`pnn_w16_single`, `pnn_w32_single`; mean of `mean_training.pkl`):
+* 32 seeded context positions per model with a random mask per example
+  ({0, 4, ..., w} above and left), the sha256 of the masked float32
+  contexts and `pnn.forward` on them;
+* the interpret-mode outputs of the two Pallas kernels (bf16 weights) on
+  the FC models' contexts (N = 7 and 32) and on the conv models' branch
+  features (w4 refconv, M = 32, and w16, M = 128; N = 4), with their
+  inputs;
+* `compare_on_channels` on the frame (256 positions, seed 0, the four
+  default masks).
+`evaluation/float_golden.py` of the port reads them (about a minute).
+
 Usage:  JAX_PLATFORMS=cpu python scripts/capture_torch_port_golden.py \
-            [--set rate_evolve|nn|all] [--out PATH]
+            [--set rate_evolve|nn|float|all] [--out PATH]
 """
 
 from __future__ import annotations
@@ -57,6 +73,12 @@ FROZEN_MANIFEST = os.path.join(REPO, "artifacts", "frozen",
 FROZEN_MEAN = os.path.join(REPO, "artifacts", "training_set", "luminance",
                            "means", "mean_training.pkl")
 NN_WIDTHS = (4, 8, 16, 32)
+FLOAT_OUT = os.path.join(REPO, "tests", "golden_torch", "float_pnn")
+FLOAT_MODELS = ("pnn_w4_fc_single", "pnn_w8_fc_single",
+                "pnn_w4_refconv_single", "pnn_w8_refconv_single",
+                "pnn_w16_single", "pnn_w32_single")
+FLOAT_CONTEXTS = 32        # seeded contexts per model
+FLOAT_COMPARE = 256        # compare_on_channels positions per model
 NN_QP_SYNTH = 37
 NN_QPS_NATURAL = (32, 37)
 
@@ -273,12 +295,103 @@ def capture_rate_evolve(out_path):
     print("wrote", out_path)
 
 
+def capture_float(out_prefix):
+    """The float prediction path's goldens (`--set float`)."""
+    import pickle
+
+    import jax
+
+    from context_adaptive_neural_network_based_prediction_tpu.data import (
+        extraction, masking)
+    from context_adaptive_neural_network_based_prediction_tpu.evaluation import (
+        prediction_comparison as pc)
+    from context_adaptive_neural_network_based_prediction_tpu.models import (
+        pnn, zoo)
+    from context_adaptive_neural_network_based_prediction_tpu.ops.pallas import (
+        fc_forward, merger)
+
+    with open(FROZEN_MEAN, "rb") as f:
+        mean = float(pickle.load(f))
+    frame = test_frames()["natural128"]
+    channels = frame[None, :, :, None]
+    arrays, meta = {}, {"mean": mean, "models": {}, "compare": {},
+                        "pallas": {}}
+    t0 = time.time()
+    for i, name in enumerate(FLOAT_MODELS):
+        w = int(name.split("_")[1][1:])
+        params, is_fc = zoo.load_frozen_params(os.path.join(
+            REPO, "artifacts", "frozen", name + ".npz"))
+        rng = np.random.default_rng(100 + i)
+        rows, cols = pc.draw_positions(rng, frame.shape[0], frame.shape[1],
+                                       w, FLOAT_CONTEXTS)
+        masks = rng.choice(np.arange(0, w + 1, 4), (FLOAT_CONTEXTS, 2))
+        above, left, target = \
+            extraction.extract_context_portions_targets_from_channel(
+                channels[0], w, rows, cols)
+        proc = masking.preprocess_context_portions_targets(
+            above, left, target, mean, (masks[:, 0], masks[:, 1]), is_fc)
+        inputs = proc[0] if is_fc else (proc[0], proc[1])
+        out = np.asarray(pnn.forward(params, inputs, w, is_fc))
+        arrays.update({f"rows/{name}": rows.astype(np.int32),
+                       f"cols/{name}": cols.astype(np.int32),
+                       f"masks/{name}": masks.astype(np.int32),
+                       f"forward/{name}": out})
+        meta["models"][name] = {
+            "width": w, "is_fc": bool(is_fc), "n": FLOAT_CONTEXTS,
+            "sha": sha(proc[0]) if is_fc else sha(proc[0]) + sha(proc[1])}
+        if is_fc:
+            for n in (7, FLOAT_CONTEXTS):
+                key = f"fc_w{w}_n{n}"
+                x = np.ascontiguousarray(proc[0][:n])
+                arrays[f"pallas/{key}/x"] = x
+                arrays[f"pallas/{key}/out"] = np.asarray(
+                    fc_forward.fc_forward_pallas(params, x, w,
+                                                 interpret=True))
+                meta["pallas"][key] = {"kind": "fc", "model": name}
+        elif name in ("pnn_w4_refconv_single", "pnn_w16_single"):
+            cp = params["convolutional"]
+            strides = pnn.STRIDES_BRANCH[w]
+            x0 = pnn._branch_forward(cp["branch_above"], proc[0][:4], strides)
+            x1 = pnn._branch_forward(cp["branch_left"], proc[1][:4], strides)
+            cm = cp["merger"]["channelwise_fully_connected_merger"]
+            side = w // int(np.prod(strides))
+            res = np.asarray(merger.merger_forward(
+                cm["weights"], cm["biases"], x0, x1, side, side,
+                interpret=True))
+            m = res.shape[3]
+            key = f"merger_m{m}_n4"
+            arrays[f"pallas/{key}/x"] = np.ascontiguousarray(np.concatenate(
+                [np.asarray(x0).reshape(4, -1, m),
+                 np.asarray(x1).reshape(4, -1, m)], axis=1))
+            arrays[f"pallas/{key}/out"] = res.reshape(4, side * side, m)
+            meta["pallas"][key] = {"kind": "merger", "model": name}
+        rows_c = pc.compare_on_channels(
+            channels, w, params, is_fc, mean,
+            nb_positions_per_image=FLOAT_COMPARE, seed=0)
+        meta["compare"][name] = {
+            "nb_positions": FLOAT_COMPARE, "seed": 0,
+            "rows": [{"width_mask_above": r.width_mask_above,
+                      "height_mask_left": r.height_mask_left,
+                      "mean_psnr_pnn": r.mean_psnr_pnn,
+                      "mean_psnr_hevc_best": r.mean_psnr_hevc_best,
+                      "pnn_win_frequency": r.pnn_win_frequency}
+                     for r in rows_c]}
+        print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+    meta["jax"] = jax.__version__
+    np.savez_compressed(out_prefix + ".npz", **arrays)
+    with open(out_prefix + ".json", "w") as f:
+        json.dump(meta, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print("wrote", out_prefix + ".npz", out_prefix + ".json")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--set", choices=("rate_evolve", "nn", "all"),
+    ap.add_argument("--set", choices=("rate_evolve", "nn", "float", "all"),
                     default="all")
     ap.add_argument("--out", default=None,
-                    help="output path (one set only)")
+                    help="output path (one set only; for float the path "
+                         "without .npz / .json)")
     args = ap.parse_args()
     import jax
 
@@ -287,6 +400,8 @@ def main():
         capture_rate_evolve(args.out or OUT)
     if args.set in ("nn", "all"):
         capture_nn(args.out or NN_OUT)
+    if args.set in ("float", "all"):
+        capture_float(args.out or FLOAT_OUT)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ substitution (`sub18`) and switch (`append`) policies, and the PNN's
 integer merger at every map count of the codec, with random inputs and
 inputs at the frozen models' caps.  The kernel path's encodes of the small
 test frames, regular and NN policies, are held against the digests
-captured from the JAX package.  Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
+captured from the JAX package.  The float PNN's kernels (the FC layers and
+the float merger) are held against their plain versions by tolerance, and
+the float prediction path against `tests/golden_torch/float_pnn.*`.
+Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -21,10 +24,12 @@ import torch
 
 from context_adaptive_neural_network_based_prediction_tpu_torch.codec import (
     rdo)
+from context_adaptive_neural_network_based_prediction_tpu_torch.evaluation import (
+    float_golden)
 from context_adaptive_neural_network_based_prediction_tpu_torch.models import (
     zoo)
 from context_adaptive_neural_network_based_prediction_tpu_torch.ops import (
-    merger_int, transform, unit_fused)
+    fc_forward, merger, merger_int, transform, unit_fused)
 from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import (
     rate_model, wavefront2)
 
@@ -233,3 +238,89 @@ def test_kernel_nn_encode_matches_jax_digests(dev, key):
     assert sha(res.bitstream) == want["stream"]
     for g, k in zip(grids, GRIDS):
         assert sha(np.ascontiguousarray(g, np.int32).tobytes()) == want[k], k
+
+
+# ---------------------------------------------------- float PNN kernels ----
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def fc_weights(w, dtype, dev, seed):
+    """An FC PNN's layers with the JAX package's init distributions
+    (weights N(0, 0.01) / N(0, 0.029)) and small random biases."""
+    rng = np.random.default_rng(seed)
+    dims = [(5 * w * w, 1200), (1200, 1200), (1200, 1200), (1200, w * w)]
+    ws, bs = [], []
+    for (k, d), sd in zip(dims, (0.01, 0.029, 0.029, 0.01)):
+        ws.append(torch.from_numpy(rng.normal(0, sd, (k, d)).astype(
+            np.float32)).to(dev, dtype))
+        bs.append(torch.from_numpy(rng.normal(0, 0.1, d).astype(
+            np.float32)).to(dev))
+    return ws, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 7, 128, 200, 2048])
+def test_fc_kernel_matches_plain(dev, w, dtype, n):
+    ws, bs = fc_weights(w, getattr(torch, dtype), dev, 10 * w + n)
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        0, 30, (n, 5 * w * w)).astype(np.float32)).to(dev)
+    before = fc_forward.launches.get((5 * w * w, 1200), 0)
+    got = fc_forward.fc_forward(x, ws, bs)
+    want = fc_forward.fc_forward(x, ws, bs, impl="plain")
+    torch.cuda.synchronize()
+    assert fc_forward.launches[(5 * w * w, 1200)] == before + 1
+    assert got.shape == (n, w * w) and got.dtype == torch.float32
+    assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("n", [1, 31, 256, 2048])
+@pytest.mark.parametrize("act", [False, True])
+def test_float_merger_kernel_matches_plain(dev, m, n, act):
+    rng = np.random.default_rng(3 * m + n)
+    x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.normal(0, 1, (n, 80, m)), rng.normal(0, 0.1, (80, 16, m)),
+        rng.normal(0, 0.1, (16, m)))]
+    before = merger.launches.get(m, 0)
+    got = merger.merger_forward(x, w, b, act=act)
+    want = merger.merger_forward(x, w, b, act=act, impl="plain")
+    torch.cuda.synchronize()
+    assert merger.launches[m] == before + 1
+    assert got.shape == (n, 16, m) and got.dtype == torch.float32
+    assert rel_err(got, want) <= 1e-5
+    got = merger.merger_forward(x, w.to(torch.bfloat16), b, act=act)
+    want = merger.merger_forward(x, w.to(torch.bfloat16), b, act=act,
+                                 impl="plain")
+    assert rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", float_golden.MODELS)
+def test_float_path_matches_jax_goldens(dev, name):
+    golden = float_golden.load(REPO)
+    fc_forward.reset_launch_counts()
+    merger.reset_launch_counts()
+    report = float_golden.check_model(golden, name, dev)
+    assert report["forward_rel_err"] <= 1e-4, report
+    assert report["contexts_equal"], report
+    launches = {("fc", k): v for k, v in fc_forward.launches.items()}
+    launches.update({("merger", k): v for k, v in merger.launches.items()})
+    assert launches == float_golden.forward_launches(name, report["n"])
+    rows = float_golden.check_comparison(golden, name, dev)
+    assert rows["max_psnr_diff"] <= 0.01, rows
+    assert rows["max_win_diff"] <= 2 / rows["n"], rows
+
+
+@pytest.mark.cuda
+def test_float_kernels_bf16_match_pallas_goldens(dev):
+    golden = float_golden.load(REPO)
+    for key, err in float_golden.check_pallas(golden, dev).items():
+        assert err <= (1e-4 if key.startswith("fc") else 1e-5), (key, err)
