@@ -17,16 +17,21 @@ printing one line with its seconds:
   0  the device (torch and nvidia-smi); no CUDA device -> exit 1
   1  builds, all started together: nvcc of each CUDA source (the unit
      trial, the PNN's integer merger, the float FC layer, the float
-     merger) and g++ of the CABAC packer; registers and spills per kernel
+     merger) and g++ of the CABAC packer; registers and spills per kernel;
+     the tensor-core instructions (HGMMA, HMMA) in the FC library's SASS
+     (`cuobjdump -sass`, where the toolkit has it: none is a failure); the
+     time and bytes of the FC weights' preparation (transposed hi/lo TF32
+     split of the w8 chain)
   2  kernel vs plain on the card: the unit trial for n = 4, 8, 16, 32 (31
      slots, seeded random inputs with nonzero rate rows, and extreme
      residuals), also with a PNN prediction under `sub18` and `append`;
      the merger for M = 32, 64, 128, 256 maps (31 slots, random inputs
      and inputs at the PNN's caps): every output exactly equal.  The float
-     FC chain at w = 4, 8, float32 and bfloat16 weights, N = 1, 7, 128,
-     200, 2048 (max error <= 1e-4 of max |plain|); the float merger at
-     M = 32 ... 512, N = 1, 31, 256, 2048, with and without the
-     activation (<= 1e-5)
+     FC chain at w = 4, 8, float32 and bfloat16 weights, N = 1, 7, 127,
+     128, 129, 200, 256, 1024, 2048 (the tiling's and K splits' edges; max
+     error <= 1e-4 of max |plain|); the float merger at M = 32 ... 512,
+     N = 1, 31, 33, 256, 1024, 2048, with and without the activation
+     (<= 1e-5); both float kernels give the same bits for the same inputs
   3  the small reference frames (64x96 synthetic, 128x128 natural) through
      the kernel path, regular (tests/golden_torch/w2_rate_evolve.json) and
      NN policies (tests/golden_torch/w2_nn.json), against the digests
@@ -53,12 +58,16 @@ printing one line with its seconds:
      positions and the four default masks: PSNR rows, seconds, and
      kernel launches, which must equal the forwards' chunk calls
   8  per kernel, on phase-4, phase-6 and phase-9 inputs: launches, max abs
-     error, ms per call (CUDA events, calls queued back to back), the
-     kernels' own device time (profiler), plain ms, bound ms, and the
+     error, ms per call (CUDA events, calls queued back to back; where
+     there is a library call, the kernel and it timed in turns, kernel,
+     library, library, kernel, ...; and the same queued behind a spin of
+     the card, so that the events time its work alone), the kernels' own
+     device time (profiler), plain ms, bound ms (for the FC PNN the least
+     over its float32-accurate routes, named in `bound_route`), and the
      time of one library call of the same function where there is one
      (library ms): a float64 `torch.bmm` for the integer merger, a float32
-     `torch.matmul` chain (TF32 off) for the FC PNN, a float32
-     `torch.bmm` for the float merger; the FC PNN and float merger also
+     `torch.matmul` chain (TF32 off) for the FC PNN, a float32 `torch.bmm`
+     for the float merger; the FC PNN and float merger also
      at the serving shapes of `scripts/profile_mfu.py` (bf16 weights, w8
      FC and the w16 merger at batch 256 and 2048); per PNN width, the
      whole quantized forward of one sub-stage: ms per call and the device
@@ -113,15 +122,21 @@ FMERGER_SOURCE = PORT + "ops/csrc/merger.cu"
 FMERGER_REPLACES = ("context_adaptive_neural_network_based_prediction_tpu/"
                     "ops/pallas/merger.py:69")
 FLOAT_POSITIONS = 2048      # compare_on_channels positions on the 1080p luma
+FC_CHECK_N = (1, 7, 127, 128, 129, 200, 256, 1024, 2048)
+SPIN_CYCLES = 1_000_000     # about 0.5 ms of the card's clock (queued timing)
+MERGER_CHECK_N = (1, 31, 33, 256, 1024, 2048)
 SERVING_BATCHES = (256, 2048)   # scripts/profile_mfu.py's FC / merger rows
 MANIFEST = os.path.join(REPO, "artifacts", "frozen", "manifest_quantized.txt")
 MEAN_PKL = os.path.join(REPO, "artifacts", "training_set", "luminance",
                         "means", "mean_training.pkl")
 # H100 SXM peaks (NVIDIA's data sheet): HBM 3.35 TB/s; 67 T/s for float32
-# outside the tensor cores.  The int32 rate is read from the card (SM count
-# and max SM clock, 64 int32 lanes per SM, a multiply-add counted as two).
+# outside the tensor cores; dense tensor cores 495 T/s in TF32, 989 T/s in
+# bf16.  The int32 rate is read from the card (SM count and max SM clock,
+# 64 int32 lanes per SM, a multiply-add counted as two).
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+TF32_OPS = 495e12
+BF16_OPS = 989e12
 GRID_NAMES = ("m8", "q8", "s8", "m4", "q4", "m16", "q16", "s16", "m32",
               "q32", "s32")
 
@@ -363,6 +378,16 @@ def main():
             for line in _build_dir.output.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        say(tensor_core_sass(_cuda_build.build("fc_forward")))
+        ws, _ = fc_layers(np.random.default_rng(8), 8, torch.float32, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepared = [fc_forward.prepare_weight(w) for w in ws]
+        torch.cuda.synchronize()
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        prep_mb = sum(t.numel() * 4 for pair in prepared for t in pair) / 1e6
+        say(f"fc_forward weight preparation (w8 chain, float32, hi and lo): "
+            f"{prep_ms:.3f} ms, {prep_mb:.1f} MB on the card")
 
     # ---- phase 2: kernels vs plain ----
     with Phase("2 kernel vs plain"):
@@ -418,7 +443,7 @@ def main():
             for dtype in (torch.float32, torch.bfloat16):
                 ws, bs = fc_layers(rng, w, dtype, dev)
                 worst = 0.0
-                for n in (1, 7, 128, 200, 2048):
+                for n in FC_CHECK_N:
                     x = torch.from_numpy(rng.normal(0, 30, (
                         n, 5 * w * w)).astype(np.float32)).to(dev)
                     got = fc_forward.fc_forward(x, ws, bs)
@@ -426,12 +451,14 @@ def main():
                     torch.cuda.synchronize()
                     worst = max(worst, check_close(
                         got, want, 1e-4, f"fc w={w} {dtype} N={n}"))
+                    assert_equal(fc_forward.fc_forward(x, ws, bs), got,
+                                 f"fc w={w} {dtype} N={n} repeated")
                 say(f"fc_forward w={w} {dtype}: kernel == plain within "
-                    f"{worst:.2e} of max |plain| at N = 1, 7, 128, 200, "
-                    f"2048")
+                    f"{worst:.2e} of max |plain| at N = {FC_CHECK_N}; "
+                    f"repeated calls equal bit for bit")
         for m in (32, 64, 128, 256, 512):
             worst = 0.0
-            for n in (1, 31, 256, 2048):
+            for n in MERGER_CHECK_N:
                 x, w, bb = [torch.from_numpy(a.astype(np.float32)).to(dev)
                             for a in (rng.normal(0, 1, (n, 80, m)),
                                       rng.normal(0, 0.1, (80, 16, m)),
@@ -444,9 +471,11 @@ def main():
                     worst = max(worst, check_close(
                         got, want, 1e-5, f"float merger M={m} N={n} "
                         f"act={act}"))
+                    assert_equal(merger.merger_forward(x, w, bb, act=act),
+                                 got, f"float merger M={m} N={n} repeated")
             say(f"float merger M={m}: kernel == plain within {worst:.2e} "
-                f"of max |plain| at N = 1, 31, 256, 2048, with and without "
-                f"the activation")
+                f"of max |plain| at N = {MERGER_CHECK_N}, with and without "
+                f"the activation; repeated calls equal bit for bit")
 
     # ---- phase 3: small frames against the JAX package's digests ----
     bundles = nn_bundles()
@@ -740,19 +769,21 @@ def main():
             lib = torch.bmm(xm, wm) + bb.T.to(torch.float64)[:, None, :]
             if not torch.equal(lib.to(torch.int32), want):
                 raise AssertionError(f"fp64 bmm != merger at M={m}")
-            library_ms = time_launches(lambda: torch.bmm(xm, wm))
             bound_ms, bound_by = merger_bound_ms(x, w, bb, int_ops)
             rows.append(kernel_row(
                 f"merger_int_m{m}", MERGER_SOURCE, MERGER_REPLACES,
                 sw_mergers[m], max_abs_err([got], [want]),
                 lambda: call("kernel"), lambda: call("plain"), bound_ms,
-                bound_by, library_ms, ("merger_int_kernel",)))
+                bound_by, lambda: torch.bmm(xm, wm), ("merger_int_kernel",)))
         rows += float_kernel_rows(captured, float_launches, dev)
         for r in rows:
+            route = f" ({r['bound_route']})" if "bound_route" in r else ""
             say(f"{r['name']}: {r['launches']} launches, {r['ms']:.4f} ms "
-                f"per call (kernels on the card {r['device_ms']} ms; plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
-                f"{r['bound_by']}, library {r['library_ms']} ms) on {smi}")
+                f"per call (queued {r['queued_ms']:.4f} ms; kernels on the "
+                f"card {r['device_ms']} ms; plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}{route}, "
+                f"library {r['library_ms']} ms, queued "
+                f"{r['library_queued_ms']} ms) on {smi}")
         for n in (4, 8, 16, 32):
             # The whole PNN forward of one sub-stage (31 slots), on its
             # phase-6 inputs: host-inclusive ms per call and what the
@@ -799,14 +830,26 @@ def main():
 
 
 def kernel_row(name, source, replaces, launches, err, fn, plain_fn,
-               bound_ms, bound_by, library_ms, device_keys):
-    """One entry of the kernels JSON, timed on the card."""
+               bound_ms, bound_by, library_fn, device_keys):
+    """One entry of the kernels JSON, timed on the card: the kernel and the
+    library call (if there is one) in turns, as the host issues them (ms,
+    library_ms) and queued behind a spin so that the card runs them back
+    to back (queued_ms, library_queued_ms: device time, no host cost)."""
+    if library_fn is None:
+        ms, library_ms = time_launches(fn), None
+        queued_ms = time_in_turns(fn, fn, queued=True)[0]
+        library_queued_ms = None
+    else:
+        ms, library_ms = time_in_turns(fn, library_fn)
+        queued_ms, library_queued_ms = time_in_turns(fn, library_fn,
+                                                     queued=True)
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches, max_abs_err=err, ms=time_launches(fn),
+        launches=launches, max_abs_err=err, ms=ms,
         plain_ms=time_launches(plain_fn, reps=10), bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
-        device_ms=kernel_device_ms(fn, device_keys))
+        device_ms=kernel_device_ms(fn, device_keys), queued_ms=queued_ms,
+        library_queued_ms=library_queued_ms)
 
 
 def float_kernel_rows(captured, float_launches, dev):
@@ -846,11 +889,12 @@ def float_kernel_rows(captured, float_launches, dev):
             return h
 
         check_close(lib(), want, 1e-4, name + " (library chain)")
-        bound_ms, bound_by = fc_bound_ms(x, ws, bs)
+        bound_ms, bound_by, route = fc_bound_ms(x, ws, bs)
         row = kernel_row(name, FC_SOURCE, FC_REPLACES, launches,
                          max_abs_err([got], [want]), lambda: call("kernel"),
-                         lambda: call("plain"), bound_ms, bound_by,
-                         time_launches(lib), ("fc_layer_kernel",))
+                         lambda: call("plain"), bound_ms, bound_by, lib,
+                         ("fc_tc_kernel", "fc_split_reduce_kernel"))
+        row["bound_route"] = route
         row["launches_per_call"] = len(ws)
         rows.append(row)
 
@@ -868,8 +912,8 @@ def float_kernel_rows(captured, float_launches, dev):
         row = kernel_row(name, FMERGER_SOURCE, FMERGER_REPLACES, launches,
                          max_abs_err([got], [want]), lambda: call("kernel"),
                          lambda: call("plain"), bound_ms, bound_by,
-                         time_launches(lambda: torch.bmm(xm, wm)),
-                         ("merger_kernel",))
+                         lambda: torch.bmm(xm, wm),
+                         ("merger_staged_kernel",))
         row["launches_per_call"] = 1
         rows.append(row)
 
@@ -910,16 +954,27 @@ def float_kernel_rows(captured, float_launches, dev):
 def fc_bound_ms(x, ws, bs):
     """The least time of one FC chain: x, the weights and biases read once
     and the (N, w^2) output written once over the HBM rate, against the
-    chain's multiply-adds (two operations each) at the float32 rate
-    outside the tensor cores."""
+    chain's multiply-adds (two operations each) by the fastest route that
+    keeps float32's accuracy: float32 outside the tensor cores, three TF32
+    products per product (split operands), and for bfloat16 weights
+    (exact in TF32 and bf16) two TF32 products or three bf16 ones (x split
+    into three bf16 pieces).  Returns (ms, bytes or operations, route)."""
+    import torch
+
     n = x.shape[0]
     moved = x.numel() * 4 + sum(t.numel() * t.element_size()
                                 for t in list(ws) + list(bs)) \
         + n * ws[-1].shape[1] * 4
     t_bytes = moved / HBM_BPS
-    t_ops = 2 * n * sum(w.shape[0] * w.shape[1] for w in ws) / F32_OPS
+    ops = 2 * n * sum(w.shape[0] * w.shape[1] for w in ws)
+    routes = {"f32": ops / F32_OPS, "3xTF32": 3 * ops / TF32_OPS}
+    if ws[0].dtype != torch.float32:
+        routes.update({"2xTF32": 2 * ops / TF32_OPS,
+                       "3xBF16": 3 * ops / BF16_OPS})
+    route = min(routes, key=routes.get)
+    t_ops = routes[route]
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", route)
 
 
 def fmerger_bound_ms(x, w, b):
@@ -953,6 +1008,57 @@ def time_launches(fn, reps=50, warm=3):
         z.record()
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(z) for a, z in ev]))
+
+
+def time_in_turns(fn, other, reps=50, warm=3, queued=False):
+    """Median ms of one call of `fn` and of `other`, timed in turns (fn,
+    other, other, fn, ...), each call with its own CUDA events, the calls
+    queued back to back.  `queued`: each call is issued while the card
+    spins for about 0.5 ms, so the events time the card's work alone."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+        other()
+    torch.cuda.synchronize()
+    times = ([], [])
+    ev = []
+    for i in range(reps):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            a, z = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            if queued:
+                torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            (fn, other)[j]()
+            z.record()
+            ev.append((j, a, z))
+    torch.cuda.synchronize()
+    for j, a, z in ev:
+        times[j].append(a.elapsed_time(z))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def tensor_core_sass(lib_path):
+    """A line with the count of tensor-core instructions (HGMMA, HMMA) in
+    the SASS of the built library, from `cuobjdump -sass`; raises if the
+    toolkit has `cuobjdump` and there are none."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return "fc_forward SASS: cuobjdump not found, not counted"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts = {op: sum(1 for line in sass.splitlines()
+                      if f" {op}." in line or f" {op} " in line)
+              for op in ("HGMMA", "HMMA")}
+    if not sum(counts.values()):
+        raise AssertionError("no tensor-core instruction in fc_forward's "
+                             "SASS")
+    return (f"fc_forward SASS: {counts['HGMMA']} HGMMA and {counts['HMMA']}"
+            f" HMMA instructions (cuobjdump -sass)")
 
 
 def kernel_device_ms(fn, keys, reps=20):

@@ -10,12 +10,17 @@ keeps every float a*b+c rounded twice, as its plain version computes it
 PNN kernels are held to a tolerance and keep nvcc's fused multiply-adds,
 at twice the rate.  `-Xptxas -v` puts each kernel's registers and spills
 in `_build_dir.output`.  A failed build raises with the compiler's output;
-nothing falls back.
+nothing falls back.  Only the toolkit's own headers are included (no
+CUTLASS or CuTe): the FC kernel writes its `wgmma`, TMA and `mbarrier`
+instructions as inline PTX and gets `cuTensorMapEncodeTiled` through the
+runtime's driver entry point, so nothing links against libcuda.
 
   unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`)
   merger_int.cu   the PNN's integer merger (`merger_int.merger_int_forward`)
-  fc_forward.cu   the float FC PNN's layers (`fc_forward.fc_forward`)
-  merger.cu       the float channelwise merger (`merger.merger_forward`)
+  fc_forward.cu   the float FC PNN's layers (`fc_forward.fc_forward`):
+                  tensor cores, split TF32, TMA ring
+  merger.cu       the float channelwise merger (`merger.merger_forward`):
+                  weights staged in shared memory, blocks walk slots
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ def _bind(name: str, path: str):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib_args = {"unit_trial": [ci, ci, ci] + [vp] * 30,
                 "merger_int": [ci, ci, ci, ci] + [vp] * 5,
-                "fc_forward": [ci] * 5 + [vp] * 5,
+                "fc_forward": [ci] * 6 + [vp] * 7,
                 "merger": [ci] * 6 + [vp] * 5}
     getattr(lib, name).argtypes = lib_args[name]
     getattr(lib, name).restype = ci
@@ -97,7 +102,8 @@ def load() -> dict:
 
 def library(name: str):
     """The loaded library of `csrc/<name>.cu`."""
-    return load()[name]
+    lib = _libs.get(name)
+    return lib if lib is not None else load()[name]
 
 
 def check_tensor(name, t, shape, dtypes, device):

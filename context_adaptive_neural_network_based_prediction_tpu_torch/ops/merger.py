@@ -51,9 +51,13 @@ def _kernel(x, w, b, act: bool):
     _cuda_build.check_tensor("x", x, (n, p, m), (torch.float32,), dev)
     _cuda_build.check_tensor("w", w, (p, o, m), WEIGHT_DTYPES, dev)
     _cuda_build.check_tensor("b", b, (o, m), (torch.float32,), dev)
+    if m % 8 or w.data_ptr() % 16:
+        raise ValueError(f"w: the kernel stages its weights in 16-byte "
+                         f"copies and wants M % 8 == 0 and a 16-byte "
+                         f"aligned start (M={m}, address {w.data_ptr():#x})")
     lib = _cuda_build.library("merger")
     out = torch.empty((n, o, m), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     err = lib.merger(n, p, o, m, int(w.dtype == torch.bfloat16), int(act),
                      x.data_ptr(), w.data_ptr(), b.data_ptr(),
                      out.data_ptr(), stream)

@@ -7,8 +7,10 @@ integer merger at every map count of the codec, with random inputs and
 inputs at the frozen models' caps.  The kernel path's encodes of the small
 test frames, regular and NN policies, are held against the digests
 captured from the JAX package.  The float PNN's kernels (the FC layers and
-the float merger) are held against their plain versions by tolerance, and
-the float prediction path against `tests/golden_torch/float_pnn.*`.
+the float merger) are held against their plain versions by tolerance, at
+the edges of the FC kernel's tiles and K splits and of the merger's slot
+chunks, two calls on the same inputs giving the same bits; and the float
+prediction path against `tests/golden_torch/float_pnn.*`.
 Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -299,6 +301,57 @@ def test_float_merger_kernel_matches_plain(dev, m, n, act):
     got = merger.merger_forward(x, w.to(torch.bfloat16), b, act=act)
     want = merger.merger_forward(x, w.to(torch.bfloat16), b, act=act,
                                  impl="plain")
+    assert rel_err(got, want) <= 1e-5
+
+
+FC_LAYER_SHAPES = sorted({(5 * w * w, 1200) for w in (4, 8)}
+                         | {(1200, 1200)} | {(1200, w * w) for w in (4, 8)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", FC_LAYER_SHAPES)
+@pytest.mark.parametrize("n", [1, 7, 127, 129, 200, 1024, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fc_layer_kernel_edges(dev, k, d, n, dtype):
+    # Every layer shape of the w4 and w8 chains, at batches around the
+    # kernel's 64-row tiles and its K splits (small N, D = w^2).
+    rng = np.random.default_rng(k + d + n)
+    x = torch.from_numpy(rng.normal(0, 30, (n, k)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(0, 0.03, (k, d)).astype(np.float32)).to(
+        dev, getattr(torch, dtype))
+    b = torch.from_numpy(rng.normal(0, 0.1, d).astype(np.float32)).to(dev)
+    act = d == 1200
+    before = fc_forward.launches.get((k, d), 0)
+    got = fc_forward._kernel_layer(x, w, b, act)
+    again = fc_forward._kernel_layer(x, w, b, act)
+    want = fc_forward._layer_plain(x, w, b, act)
+    torch.cuda.synchronize()
+    assert fc_forward.launches[(k, d)] == before + 2
+    assert got.shape == (n, d) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("n", [1, 31, 33, 1024, 2048])
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float_merger_kernel_edges(dev, m, n, act, dtype):
+    # Slot counts around the merger's 2-slot groups and per-block chunks.
+    rng = np.random.default_rng(7 * m + n)
+    x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.normal(0, 1, (n, 80, m)), rng.normal(0, 0.1, (80, 16, m)),
+        rng.normal(0, 0.1, (16, m)))]
+    w = w.to(getattr(torch, dtype))
+    before = merger.launches.get(m, 0)
+    got = merger.merger_forward(x, w, b, act=act)
+    again = merger.merger_forward(x, w, b, act=act)
+    want = merger.merger_forward(x, w, b, act=act, impl="plain")
+    torch.cuda.synchronize()
+    assert merger.launches[m] == before + 2
+    assert got.shape == (n, 16, m) and got.dtype == torch.float32
+    assert torch.equal(got, again)
     assert rel_err(got, want) <= 1e-5
 
 

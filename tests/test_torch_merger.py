@@ -112,3 +112,8 @@ def test_kernel_wrapper_checks_its_inputs():
                  (xc[:, :40], tw, tb)):                    # positions
         with pytest.raises(ValueError, match="want contiguous"):
             t_merger._kernel(*args, act=False)
+    # The kernel stages its weight panel in 16-byte copies: M % 8 == 0.
+    with pytest.raises(ValueError, match="M % 8"):
+        t_merger._kernel(xc[:, :, :20].contiguous(),
+                         tw[:, :, :20].contiguous(), tb[:, :20].contiguous(),
+                         act=False)
