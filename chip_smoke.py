@@ -24,9 +24,10 @@ printing one line with its seconds:
      split of the w8 chain)
   2  kernel vs plain on the card: the unit trial for n = 4, 8, 16, 32 (31
      slots, seeded random inputs with nonzero rate rows, and extreme
-     residuals), also with a PNN prediction under `sub18` and `append`;
-     the merger for M = 32, 64, 128, 256 maps (31 slots, random inputs
-     and inputs at the PNN's caps): every output exactly equal.  The float
+     residuals; n = 4 and 8 also at 1 slot), also with a PNN prediction
+     under `sub18` and `append` (31 slots and 1); the merger for M = 32,
+     64, 128, 256 maps (1, 17 and 31 slots, random inputs and inputs at
+     the PNN's caps): every output exactly equal.  The float
      FC chain at w = 4, 8, float32 and bfloat16 weights, N = 1, 7, 127,
      128, 129, 200, 256, 1024, 2048 (the tiling's and K splits' edges; max
      error <= 1e-4 of max |plain|); the float merger at M = 32 ... 512,
@@ -71,7 +72,9 @@ printing one line with its seconds:
      at the serving shapes of `scripts/profile_mfu.py` (bf16 weights, w8
      FC and the w16 merger at batch 256 and 2048); per PNN width, the
      whole quantized forward of one sub-stage: ms per call and the device
-     activities the profiler sees
+     activities the profiler sees; and the latency floor, an empty kernel
+     launched through the same ctypes path (queued and profiler us,
+     without and with 33 KB of shared memory, alone and alternating)
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero.  It imports
@@ -87,6 +90,7 @@ import os
 import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -139,6 +143,10 @@ TF32_OPS = 495e12
 BF16_OPS = 989e12
 GRID_NAMES = ("m8", "q8", "s8", "m4", "q4", "m16", "q16", "s16", "m32",
               "q32", "s32")
+# The kernels of one trial call, by unit size (profiler names).
+TRIAL_KERNELS = {4: ("trial_small_kernel",), 8: ("trial_small_kernel",),
+                 16: ("trial_modes_kernel", "select_kernel"),
+                 32: ("trial_modes_kernel", "select_kernel")}
 
 
 def say(msg):
@@ -331,8 +339,8 @@ def main():
     from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
         import native
     from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
-        import (_cuda_build, fc_forward, merger, merger_int, transform,
-                unit_fused)
+        import (_cuda_build, fc_forward, kernel_variants, merger, merger_int,
+                transform, unit_fused)
     from context_adaptive_neural_network_based_prediction_tpu_torch.parallel \
         import wavefront2
 
@@ -398,14 +406,18 @@ def main():
         rng = np.random.default_rng(2024)
         for n in (4, 8, 16, 32):
             tc = dp["trial"][n]
-            for extreme in (False, True):
-                args = [torch.from_numpy(x).to(dev)
-                        for x in trial_inputs(rng, n, b, extreme=extreme)]
-                got = unit_fused.trial_apply(tc, *args, impl="kernel")
-                want = unit_fused.trial_apply(tc, *args, impl="plain")
-                torch.cuda.synchronize()
-                assert_equal(got, want, f"n={n} extreme={extreme}")
-            say(f"n={n}: kernel == plain on {b} slots (random, extreme)")
+            # n = 4 and 8 (a cluster per slot) also at a single slot.
+            for slots in ((b, 1) if n <= 8 else (b,)):
+                for extreme in (False, True):
+                    args = [torch.from_numpy(x).to(dev) for x in
+                            trial_inputs(rng, n, slots, extreme=extreme)]
+                    got = unit_fused.trial_apply(tc, *args, impl="kernel")
+                    want = unit_fused.trial_apply(tc, *args, impl="plain")
+                    torch.cuda.synchronize()
+                    assert_equal(got, want, f"n={n} b={slots} "
+                                 f"extreme={extreme}")
+                say(f"n={n}: kernel == plain on {slots} slots (random, "
+                    f"extreme)")
         for policy in ("sub18", "append"):
             n_modes = 36 if policy == "append" else 35
             for n in (4, 8, 16, 32):
@@ -415,9 +427,9 @@ def main():
                     transform.QUANT_SCALES[QP % 6],
                     transform.INV_QUANT_SCALES[QP % 6], b, nn_policy=policy,
                     groups={4: 1, 8: 1, 16: 6, 32: 36}[n]), device=dev)
-                for extreme in (False, True):
+                for slots, extreme in ((b, False), (b, True), (1, True)):
                     rt, rl, og, mb, rr = trial_inputs(
-                        rng, n, b, n_modes=n_modes, extreme=extreme)
+                        rng, n, slots, n_modes=n_modes, extreme=extreme)
                     nnp = np.clip(og + rng.integers(-3, 4, og.shape), 0, 255)
                     args = [torch.from_numpy(x).to(dev)
                             for x in (rt, rl, og, mb, rr)]
@@ -426,19 +438,23 @@ def main():
                     want = unit_fused.trial_apply(tc, *args, impl="plain",
                                                   nn_pred=nn_pred)
                     torch.cuda.synchronize()
-                    assert_equal(got, want, f"{policy} n={n} "
+                    assert_equal(got, want, f"{policy} n={n} b={slots} "
                                  f"extreme={extreme}")
             say(f"nn_policy {policy}: kernel == plain with a PNN prediction,"
-                f" n = 4..32, {b} slots (random, extreme)")
+                f" n = 4..32, {b} slots (random, extreme) and 1 slot")
         for m in NN_MAPS.values():
-            for extreme in (False, True):
-                x, w, bb = [torch.from_numpy(a).to(dev) for a in
-                            merger_inputs(rng, m, b, extreme=extreme)]
-                got = merger_int.merger_int_forward(x, w, bb)
-                want = merger_int.merger_int_forward(x, w, bb, impl="plain")
-                torch.cuda.synchronize()
-                assert_equal(got, want, f"merger M={m} extreme={extreme}")
-            say(f"merger M={m}: kernel == plain on {b} slots (random, caps)")
+            for slots in (1, 17, b):
+                for extreme in (False, True):
+                    x, w, bb = [torch.from_numpy(a).to(dev) for a in
+                                merger_inputs(rng, m, slots, extreme=extreme)]
+                    got = merger_int.merger_int_forward(x, w, bb)
+                    want = merger_int.merger_int_forward(x, w, bb,
+                                                         impl="plain")
+                    torch.cuda.synchronize()
+                    assert_equal(got, want, f"merger M={m} N={slots} "
+                                 f"extreme={extreme}")
+            say(f"merger M={m}: kernel == plain on 1, 17 and {b} slots "
+                f"(random, caps)")
         for w in (4, 8):
             for dtype in (torch.float32, torch.bfloat16):
                 ws, bs = fc_layers(rng, w, dtype, dev)
@@ -757,7 +773,7 @@ def main():
                 f"unit_trial_n{n}", SOURCE, REPLACES[n], launches[n],
                 max_abs_err(got, want), lambda: call("kernel"),
                 lambda: call("plain"), bound_ms, bound_by, None,
-                ("trial_modes_kernel", "select_kernel")))
+                TRIAL_KERNELS[n]))
         for n, m in NN_MAPS.items():
             x, w, bb = captured[("merger", m)]
             call = lambda impl: merger_int.merger_int_forward(x, w, bb,
@@ -774,8 +790,15 @@ def main():
                 f"merger_int_m{m}", MERGER_SOURCE, MERGER_REPLACES,
                 sw_mergers[m], max_abs_err([got], [want]),
                 lambda: call("kernel"), lambda: call("plain"), bound_ms,
-                bound_by, lambda: torch.bmm(xm, wm), ("merger_int_kernel",)))
+                bound_by, lambda: torch.bmm(xm, wm),
+                ("merger_int_vec_kernel",)))
         rows += float_kernel_rows(captured, float_launches, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            for case, (us, dev_us) in kernel_variants.empty_floor(
+                    dev, tmp).items():
+                say(f"empty launch (ctypes, 31 blocks x 256 threads), {case}:"
+                    f" queued {us[0]:.4f} / {us[1]:.4f} us, on the card "
+                    f"{dev_us[0]} / {dev_us[1]} us (latency floor) on {smi}")
         for r in rows:
             route = f" ({r['bound_route']})" if "bound_route" in r else ""
             say(f"{r['name']}: {r['launches']} launches, {r['ms']:.4f} ms "
@@ -1152,12 +1175,15 @@ def trial_bound_ms(tc, args, int_ops):
     two, at the card's int32 rate; about 72 per pixel for prediction,
     RDOQ, rate, sign hiding and reconstruction at the float32 rate.  The
     two kinds issue to separate units, so the larger time bounds."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import unit_fused
+
     n, nn = tc["n"], tc["nn"]
     b = args[0].shape[0]
     n_modes = tc["n_modes"]
     read = sum(a.numel() * a.element_size() for a in args)
-    read += sum(tc[k].numel() * tc[k].element_size() for k in tc
-                if k.startswith("k_"))
+    read += sum(tc[k].numel() * tc[k].element_size() for k in
+                unit_fused.TABLE_KEYS + unit_fused.PARAM_KEYS)
     written = b * 4 * 2 + b * nn * 4 * 2 + b * 8 * 4
     t_bytes = (read + written) / HBM_BPS
     t_ops = max(b * n_modes * 4 * 2 * n ** 3 / int_ops,

@@ -15,8 +15,10 @@ CUTLASS or CuTe): the FC kernel writes its `wgmma`, TMA and `mbarrier`
 instructions as inline PTX and gets `cuTensorMapEncodeTiled` through the
 runtime's driver entry point, so nothing links against libcuda.
 
-  unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`)
-  merger_int.cu   the PNN's integer merger (`merger_int.merger_int_forward`)
+  unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`): one
+                  launch per call at n = 4 and 8, modes on warp lanes
+  merger_int.cu   the PNN's integer merger (`merger_int.merger_int_forward`):
+                  weights laid out (P, M, O) once, vector loads
   fc_forward.cu   the float FC PNN's layers (`fc_forward.fc_forward`):
                   tensor cores, split TF32, TMA ring
   merger.cu       the float channelwise merger (`merger.merger_forward`):
@@ -63,8 +65,8 @@ def build(name: str) -> str:
 def _bind(name: str, path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib_args = {"unit_trial": [ci, ci, ci] + [vp] * 30,
-                "merger_int": [ci, ci, ci, ci] + [vp] * 5,
+    lib_args = {"unit_trial": [ci, ci] + [vp] * 9,
+                "merger_int": [ci, ci, ci] + [vp] * 5,
                 "fc_forward": [ci] * 6 + [vp] * 7,
                 "merger": [ci] * 6 + [vp] * 5}
     getattr(lib, name).argtypes = lib_args[name]

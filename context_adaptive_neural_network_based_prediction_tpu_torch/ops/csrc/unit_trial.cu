@@ -3,7 +3,7 @@
 // Replaces the TPU kernel `_pallas_run` of the JAX package
 // (context_adaptive_neural_network_based_prediction_tpu/ops/unit_fused.py):
 // its single-block form (pallas_call at :785, n = 4 and 8) and its
-// mode-group grid form (pallas_call at :870, n = 16 and 32).  One launch
+// mode-group grid form (pallas_call at :870, n = 16 and 32).  One call
 // tries every intra mode of b units of size n x n (one per wavefront slot)
 // and keeps the cheapest:
 //   [1 2 1] reference filter (bilinear at 32x32 when flat) -> planar, DC and
@@ -12,36 +12,59 @@
 //   4x4 group -> dequant, inverse transform, reconstruction -> SSE +
 //   lambda * bits -> first minimum over ascending mode ids.
 //
-// Design.  The TPU kernel turns prediction and transforms into matrix
-// products on a (pixels, modes x slots) layout because that is what its
-// matrix unit runs well.  Here a block of threads does one (slot, mode)
-// trial: grid (b, n_modes), n*n pixels (at most 256 threads, looping), all
-// working arrays in shared memory (about 30 KB at n = 32).  Prediction is
-// direct integer angular interpolation ((32-f)*a + f*b + 16) >> 5 from the
-// angular gather tables, which equals the reference's float32 products of
-// small integers exactly.  Transforms are integer row and column passes
-// (the column pass of the forward transform in int64), equal to the
-// reference's hi/lo-split products.  Per-TU sums are integer shared-memory
-// atomics, so their order does not matter.  The float cost chain repeats
-// the reference's float32 operations in the same order; the file is
-// compiled with --fmad=false so that no a*b+c is contracted.  A second
-// small kernel takes each slot's first minimum (strict <, ascending mode
-// ids) and gathers its reconstruction, levels and bin counts.
+// What bounds it.  At the encoder's shapes a call is small: up to 31 slots
+// x 35 or 36 modes x n^2 pixels (1080p), and a frame needs about 10,500
+// calls (124 wavefront steps x 85 z-order sub-stages).  The work of a call
+// is a few MFLOP and a few hundred KB, under 0.2 us of the card's rates at
+// n = 4 and 8, so a call is bound by its launch and by the chain of
+// dependent steps inside it, and the encode by the serial sub-stage chain.
+//
+// Design, n = 4 and 8 (`trial_small_kernel`; 9,920 of a frame's 10,540
+// calls).  One launch.  Each slot gets a cluster of CLUSTER_n blocks (4:
+// 124 blocks on the card's 132 SMs instead of 31), each with 9 of the
+// slot's 36 mode slots.  A block loads and filters the slot's references
+// once, then runs each mode on its own lanes (half a warp at n = 4, a warp
+// at n = 8, two pixels a lane), warp-synchronously: no block barrier in a
+// mode's chain, transforms through a per-mode shared scratch read as
+// 16-byte rows, per-TU and per-coefficient-group sums by shuffles and warp
+// reductions (sign hiding from two bit masks a group).  Each lane issues
+// the global loads of its modes' table entries first, so they overlap the
+// block's own loads.  Each mode's cost is pushed into every block of the
+// cluster (st.async, counted on an mbarrier: no release/acquire cluster
+// barrier, which costs about 1 us here); every block then takes the first
+// minimum itself and the block that holds the winner writes its cost,
+// mode, reconstruction, levels and counts from shared memory.  The tables
+// reach the kernel as one struct of pointers and scalars passed by value
+// (`Tables`, built once per table set by the wrapper), so no scalar
+// parameter costs a load.  Cluster size and the rest were chosen by timing
+// in `ops/kernel_variants.py trial`.
+//
+// Design, n = 16 and 32 (`trial_modes_kernel` + `select_kernel`, kept from
+// the port's first version): a block of threads does one (slot, mode)
+// trial, grid (b, n_modes), at most 256 threads looping over the pixels,
+// working arrays in shared memory (about 30 KB at n = 32), per-TU sums by
+// shared-memory atomics; each mode's results go to global scratch, and a
+// second small kernel takes each slot's first minimum and gathers it.
+//
+// Both: prediction is direct integer angular interpolation ((32-f)*a + f*b
+// + 16) >> 5 from the angular gather tables, which equals the reference's
+// float32 products of small integers exactly.  Transforms are integer row
+// and column passes (the column pass of the forward transform in int64),
+// equal to the reference's hi/lo-split products.  Integer sums are exact
+// in any order.  The float cost chain repeats the reference's float32
+// operations in the same order; the file is compiled with --fmad=false so
+// that no a*b+c is contracted.
 //
 // The PNN mode.  Under the NN policies the PNN's prediction (b, n, n),
 // computed before the launch, is the prediction of one mode: mode 18
-// (substitution) or the 36th mode, PNNS (switch), as IP_NNMODE says; the
-// block of that mode loads it instead of interpolating.  Without a
-// prediction (a null pointer) that mode predicts zeros.  Nothing else of
-// the trial depends on the policy.
+// (substitution) or the 36th mode, PNNS (switch), as IP_NNMODE says; that
+// mode reads it instead of interpolating.  Without a prediction (a null
+// pointer) that mode predicts zeros.  A null rate_rows means zero rows.
 //
-// What bounds it.  At the encoder's shapes a launch is small: 31 slots x
-// 35 modes x n^2 pixels (1080p), and a frame needs about 10,500 launches
-// (124 wavefront steps x 85 z-order sub-stages).  The work per launch is a
-// few MFLOP and a few hundred KB, so the kernel is bound by launch latency
-// and by the serial sub-stage chain, not by bytes or operations.  Later
-// work: one persistent launch per step or CUDA graphs over the sub-stages,
-// and wgmma for the 32x32 transforms.
+// Outputs, one int32 buffer per call (the wrapper's one allocation):
+// cost (b, as float bits) | best (b) | rec (b, n*n) | q (b, n*n) | counts
+// (b, 8), then at n = 16 and 32 the per-mode scratch: cost_m (b, 36) |
+// rec_m (b, 36, n*n) | q_m (b, 36, n*n) | cnt_m (b, 36, 8).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,8 +74,8 @@ namespace {
 constexpr int M_PAD = 36;     // mode slots per unit (35 modes + PNNS)
 constexpr int N_INTRA = 35;   // planar, DC and 33 angular modes
 
-// Integer parameters (k_iparams) and float parameters (k_fparams); the
-// order matches ops/unit_fused.py:_kernel_tables.
+// Integer parameters (ip) and float parameters (fp); the order matches
+// ops/unit_fused.py:_kernel_tables.
 enum {
   IP_NMODES, IP_ROWS, IP_SHIFT1, IP_SHIFT2, IP_QBITS, IP_IQSHIFT,
   IP_IQSCALE, IP_G1_0, IP_G1_1, IP_G2_0, IP_G2_1, IP_CSB0, IP_CSB1, IP_CBF1,
@@ -60,6 +83,9 @@ enum {
 };
 enum { FP_QSCALE, FP_ERRSCALE, FP_LAM, FP_LAMCBF0, FP_CBF0 };
 
+// The table set of one unit size and QP (ops/unit_fused.py:TableSet lays
+// out the same struct): device pointers into one table block, and the
+// scalar parameters by value.
 struct Tables {
   const int* g0;        // (33, n*n) angular reference index a
   const int* g1;        // (33, n*n) angular reference index b
@@ -73,19 +99,19 @@ struct Tables {
   const int* sig0i;     // (rows, n*n) round(sig0 * 256)
   const int* sig1i;     // (rows, n*n) round(sig1 * 256)
   const int* lastpb;    // (n*n) last-position micro-bits
-  const int* ip;        // integer parameters
-  const float* fp;      // float parameters
+  int ip[16];           // integer parameters
+  float fp[8];          // float parameters
 };
 
 __device__ __forceinline__ int level_mbits(int lvl, int g1_0, int g1_1,
                                            int g2_0, int g2_1) {
   // Micro-bits of a nonzero level: greater1/greater2 flags and the
   // Golomb-Rice escape at rice 0, floor(log2) by integer compares.
-  int s = lvl - 3;
-  int m = max(s - 2, 1);
-  int g = 0;
-  for (int j = 1; j < 16; ++j) g += (m >= (1 << j)) ? 1 : 0;
-  int golomb = (s < 3) ? s + 1 : 4 + 2 * g;
+  const int s = lvl - 3;
+  const int m = max(s - 2, 1);
+  // The count of j in 1..15 with m >= 2^j: floor(log2(m)), at most 15.
+  const int g = min(31 - __clz(m), 15);
+  const int golomb = (s < 3) ? s + 1 : 4 + 2 * g;
   int r;
   if (lvl == 1) r = g1_0;
   else if (lvl == 2) r = g1_1 + g2_0;
@@ -103,6 +129,603 @@ struct Rates {
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
+__device__ __forceinline__ int rate_row(const int* rr, int k, int b, int s) {
+  return rr != nullptr ? rr[k * b + s] : 0;
+}
+
+// ---- n = 4 and 8: one launch, a block (or a cluster) per slot ----
+
+constexpr unsigned FULL = 0xffffffffu;
+// Thread-block cluster size per slot at n = 4 and 8: the slot's modes are
+// split over CLUSTER_n blocks that select over distributed shared memory
+// (chosen by timing in `ops/kernel_variants.py trial`).
+constexpr int CLUSTER_4 = 4;
+constexpr int CLUSTER_8 = 4;
+
+// Sums, maxima and minima over the 16 lanes that share lane bit 4 (a
+// half-warp): one 4x4 coefficient group, or at n = 4 one mode.
+__device__ __forceinline__ int sum16(int v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+__device__ __forceinline__ int max16(int v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+__device__ __forceinline__ float fmin16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+// N ints of a 16-byte aligned shared-memory row.
+template <int N>
+__device__ __forceinline__ void load_row(const int* p, int (&r)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const int4 v = *reinterpret_cast<const int4*>(p + j);
+    r[j] = v.x;
+    r[j + 1] = v.y;
+    r[j + 2] = v.z;
+    r[j + 3] = v.w;
+  }
+}
+
+// Over the G lanes of one mode (G = 16: a half-warp; G = 32: the warp).
+template <int G>
+__device__ __forceinline__ int group_sum(int v) {
+  if constexpr (G == 32) return __reduce_add_sync(FULL, v);
+  else return sum16(v);
+}
+template <int G>
+__device__ __forceinline__ int group_max(int v) {
+  if constexpr (G == 32) return __reduce_max_sync(FULL, v);
+  else return max16(v);
+}
+
+// ---- cluster helpers (PTX) ----
+// The select of a cluster: each block's mode costs are pushed into every
+// block of the slot's cluster with st.async, and each block's mbarrier
+// counts the bytes that arrive, so no release/acquire cluster barrier (a
+// GPU-wide fence on this card) sits between the modes and the select.
+// Two relaxed cluster barriers: one arrived at the start (after the
+// mbarrier's initialisation and its fence) and waited for before the
+// first push, so no push reaches an uninitialised mbarrier (a count that
+// arrives before the expected bytes are set only runs ahead: the phase
+// cannot complete before the local arrive); one at the end, arrived once
+// a block has received all its bytes, so no block exits while a push of
+// the cluster is in flight.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits for phase 0 of the barrier; more than about 10 s traps (a launch
+// error) instead of hanging.
+__device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "0; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// *dst = v in block `rank` of the cluster, completing 4 bytes of its
+// barrier `bar` (dst and bar given as this block's addresses).
+__device__ __forceinline__ void push_f32(float* dst, float v, uint64_t* bar,
+                                         int rank) {
+  uint32_t rd, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rd) : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rb) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];" :: "r"(rd), "r"(__float_as_uint(v)), "r"(rb) : "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+// ---- end of cluster helpers ----
+
+// The shape of the n = 4 / 8 kernel: G lanes a mode, KPL pixels a lane,
+// MPC modes a block (CL blocks a slot), SLOTS modes a pass, WARPS warps.
+template <int N, int CL>
+struct Small {
+  static constexpr int NN = N * N;
+  static constexpr int G = N == 4 ? 16 : 32;
+  static constexpr int KPL = NN / G;
+  static constexpr int MPC = M_PAD / CL;
+  static constexpr int WARPS_NEED = (MPC * G + 31) / 32;
+  static constexpr int WARPS = WARPS_NEED < 18 ? WARPS_NEED : 18;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int SLOTS = WARPS * 32 / G;
+  static constexpr int PASSES = (MPC + SLOTS - 1) / SLOTS;
+  static_assert(MPC * CL == M_PAD, "cluster size divides 36");
+};
+
+// A mode's table entries for one lane's pixels, loaded at the start.
+template <int KPL>
+struct ModeTab {
+  int frac[KPL], a[KPL], b[KPL], scan[KPL], cgscan[KPL];
+  int sig0i[KPL], sig1i[KPL], lastpb[KPL];
+  float sig0[KPL], sig1[KPL];
+  int filt;
+  float mode_bits;
+};
+
+// The trial of b units of size N (4 or 8): one block per slot, or a
+// cluster of CL blocks per slot, each with MPC of the 36 mode slots.  A
+// block loads its slot's references, original, PNN prediction and the
+// transform matrices into shared memory and filters the references once;
+// every lane first issues the global loads of its modes' table entries,
+// so they overlap that.  Each mode then runs on its own G lanes (a
+// half-warp at N = 4; a warp at N = 8, two pixels a lane),
+// warp-synchronously: transforms through a per-mode shared scratch and
+// __syncwarp, per-TU and per-coefficient-group sums by shuffles and warp
+// reductions, no block barrier.  Each mode leaves its cost,
+// reconstruction, levels and bin counts in shared memory; in a cluster it
+// also pushes its cost into every block of the cluster.  One warp of each
+// block then takes the first minimum of the slot's 36 costs (strict <,
+// ascending mode ids), and the block that holds the winner writes it.
+// CL = 1 (a block a slot, two passes at N = 8) is kept for the variant
+// tool's comparison.  Lane pixels: lane
+// l, register k holds pixel (4k + i / 4, 4 (l / 16) + i % 4) at N = 8 and
+// (i / 4, i % 4) at N = 4, i = l % 16, so a half-warp holds one 4x4
+// coefficient group.
+template <int N, int CL>
+__global__ void __launch_bounds__(Small<N, CL>::THREADS)
+trial_small_kernel(int b, const int* __restrict__ ref_top,
+                   const int* __restrict__ ref_left,
+                   const int* __restrict__ orig,
+                   const float* __restrict__ mode_bits,
+                   const int* __restrict__ rate_rows,
+                   const int* __restrict__ nn_pred, const Tables T,
+                   float* __restrict__ cost, int* __restrict__ best,
+                   int* __restrict__ rec, int* __restrict__ q,
+                   int* __restrict__ cnt) {
+  using K = Small<N, CL>;
+  constexpr int NN = K::NN, G = K::G, KPL = K::KPL, MPC = K::MPC;
+  constexpr int SLOTS = K::SLOTS, PASSES = K::PASSES;
+  constexpr int NT = K::THREADS;
+  constexpr int ROWS = SLOTS * PASSES;          // mode rows a block keeps
+  constexpr int S = 2 * N + 1;
+  constexpr int R = 2 * S;
+  constexpr int LEFT = S;
+  constexpr int LOG2N = N == 4 ? 2 : 3;
+
+  __shared__ int raw[R];
+  __shared__ int flt[R];
+  __shared__ int og[NN];
+  __shared__ int nnp[NN];
+  __shared__ __align__(16) int tfs[N][N];      // forward matrix
+  __shared__ __align__(16) int tit[N][N];      // inverse matrix, transposed
+  __shared__ __align__(16) int scr[SLOTS][2][NN];
+  __shared__ int rec_s[ROWS][NN];
+  __shared__ int q_s[ROWS][NN];
+  __shared__ int cnt_s[ROWS][8];
+  __shared__ float cost_s[ROWS];
+  __shared__ float cost_all[M_PAD];             // the slot's mode costs
+  __shared__ __align__(8) uint64_t costs_in;    // mbarrier of cost_all
+  __shared__ int s_dc;
+  __shared__ int s_best;
+
+  const int rank = CL > 1 ? cluster_rank() : 0;
+  const int s = blockIdx.x / CL;
+  const int tid = threadIdx.x;
+  const int n_modes = T.ip[IP_NMODES];
+  const int lane = tid & 31;
+  const int gl = lane & (G - 1);                // lane within the mode
+  const int slot = (tid >> 5) * (32 / G) + lane / G;
+  const int i16 = lane & 15;                    // place in its 4x4 group
+  const int cgx = G == 32 ? lane >> 4 : 0;
+
+  // ---- this lane's table entries, for every pass ----
+  ModeTab<KPL> tab[PASSES];
+#pragma unroll
+  for (int pass = 0; pass < PASSES; ++pass) {
+    // Slots past the block's modes, or past the last mode, repeat the
+    // last mode (their results are never read), so every lane takes part
+    // in every shuffle.
+    const int m = min(rank * MPC + min(pass * SLOTS + slot, MPC - 1),
+                      n_modes - 1);
+    const int rows_mode = T.ip[IP_ROWS] == 1 ? 0 : m;
+    const bool angular = m >= 2 && m < N_INTRA;
+    ModeTab<KPL>& t = tab[pass];
+    t.filt = m < N_INTRA ? __ldg(T.use_filt + m) : 0;
+    t.mode_bits = __ldg(mode_bits + s * n_modes + m);
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int p = (4 * k + (i16 >> 2)) * N + 4 * cgx + (i16 & 3);
+      const int ta = (angular ? m - 2 : 0) * NN + p;
+      t.frac[k] = __ldg(T.frac + ta);
+      t.a[k] = __ldg(T.g0 + ta);
+      t.b[k] = __ldg(T.g1 + ta);
+      const int rp = rows_mode * NN + p;
+      t.scan[k] = __ldg(T.scan + rp);
+      t.cgscan[k] = __ldg(T.scan + rows_mode * NN + 4 * k * N + 4 * cgx);
+      t.sig0[k] = __ldg(T.sig0 + rp);
+      t.sig1[k] = __ldg(T.sig1 + rp);
+      t.sig0i[k] = __ldg(T.sig0i + rp);
+      t.sig1i[k] = __ldg(T.sig1i + rp);
+      t.lastpb[k] = __ldg(T.lastpb + p);
+    }
+  }
+
+  if constexpr (CL > 1) {
+    if (tid == 0) mbar_init_tx(&costs_in, M_PAD * 4);
+    __syncwarp();                    // .aligned: the warp arrives together
+    cluster_arrive_relaxed();
+  }
+
+  // ---- the slot's references, original and prediction; filtering ----
+  for (int i = tid; i < R; i += NT)
+    raw[i] = i < LEFT ? ref_top[s * S + i] : ref_left[s * S + i - LEFT];
+  for (int i = tid; i < NN; i += NT) {
+    og[i] = orig[s * NN + i];
+    nnp[i] = nn_pred != nullptr ? nn_pred[s * NN + i] : 0;
+    tfs[i / N][i % N] = T.tf[i];
+    tit[i % N][i / N] = T.ti[i];
+  }
+  __syncthreads();
+  for (int i = tid; i < R; i += NT) {
+    const bool left = i >= LEFT;
+    const int j = left ? i - LEFT : i;
+    int v;
+    if (j == 0) {
+      v = (raw[LEFT + 1] + 2 * raw[0] + raw[1] + 2) >> 2;
+    } else if (j == 2 * N) {
+      v = raw[i];
+    } else if (!left) {
+      v = (raw[j - 1] + 2 * raw[j] + raw[j + 1] + 2) >> 2;
+    } else {
+      const int a = j == 1 ? raw[0] : raw[LEFT + j - 1];
+      v = (a + 2 * raw[LEFT + j] + raw[LEFT + j + 1] + 2) >> 2;
+    }
+    flt[i] = v;
+  }
+  if (tid == 0) {
+    int dc = 0;
+    for (int i = 1; i <= N; ++i) dc += raw[i] + raw[LEFT + i];
+    s_dc = (dc + N) >> (LOG2N + 1);
+  }
+  __syncthreads();
+
+  // Per-slot parameters (the same for every mode).
+  const int shift1 = T.ip[IP_SHIFT1], shift2 = T.ip[IP_SHIFT2];
+  const int dsig0 = rate_row(rate_rows, 0, b, s);
+  const int dsig1 = rate_row(rate_rows, 1, b, s);
+  const Rates rt{T.ip[IP_G1_0] + rate_row(rate_rows, 2, b, s),
+                 T.ip[IP_G1_1] + rate_row(rate_rows, 3, b, s),
+                 T.ip[IP_G2_0] + rate_row(rate_rows, 4, b, s),
+                 T.ip[IP_G2_1] + rate_row(rate_rows, 5, b, s)};
+  const int dcbf0 = rate_row(rate_rows, 6, b, s);
+  const int dcbf1 = rate_row(rate_rows, 7, b, s);
+  const float QS = T.fp[FP_QSCALE], ES = T.fp[FP_ERRSCALE];
+  const float LAM = T.fp[FP_LAM];
+  const int qbits = T.ip[IP_QBITS];
+  const float qstep = ldexpf(1.0f, qbits);
+  const float inv_qstep = ldexpf(1.0f, -qbits);
+  const float dsig0f = (float)dsig0 * (1.0f / 256.0f);
+  const float dsig1f = (float)dsig1 * (1.0f / 256.0f);
+  const int iq = T.ip[IP_IQSHIFT], iq_scale = T.ip[IP_IQSCALE];
+  const int dc = s_dc;
+  int* bufA = scr[slot][0];
+  int* bufB = scr[slot][1];
+
+#pragma unroll
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int row = pass * SLOTS + slot;        // the mode's result row
+    const int m = min(rank * MPC + min(row, MPC - 1), n_modes - 1);
+    const ModeTab<KPL>& t = tab[pass];
+    const bool is_nn = m == T.ip[IP_NNMODE] || m >= N_INTRA;
+    const int* src = !is_nn && t.filt ? flt : raw;
+
+    int px[KPL], pr[KPL], c[KPL], L[KPL];
+    float ld[KPL];
+    // ---- prediction and residual ----
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int y = 4 * k + (i16 >> 2), x = 4 * cgx + (i16 & 3);
+      const int p = y * N + x;
+      px[k] = p;
+      int v;
+      if (is_nn) {
+        v = nnp[p];
+      } else if (m == 0) {
+        const int Lf = src[LEFT + 1 + y], TR = src[N + 1];
+        const int Tp = src[1 + x], BL = src[LEFT + N + 1];
+        v = ((Lf << LOG2N) + N + (x + 1) * (TR - Lf) + (Tp << LOG2N) +
+             (y + 1) * (BL - Tp)) >> (LOG2N + 1);
+      } else if (m == 1) {
+        v = dc;
+        if (y == 0 && x == 0)
+          v = (raw[1] + raw[LEFT + 1] + 2 * dc + 2) >> 2;
+        else if (y == 0)
+          v = (raw[1 + x] + 3 * dc + 2) >> 2;
+        else if (x == 0)
+          v = (raw[LEFT + 1 + y] + 3 * dc + 2) >> 2;
+      } else {
+        const int f = t.frac[k];
+        v = ((32 - f) * src[t.a[k]] + f * src[t.b[k]] + 16) >> 5;
+        if (m == 26 && x == 0)
+          v = min(max(v + ((raw[LEFT + 1 + y] - raw[LEFT]) >> 1), 0), 255);
+        if (m == 10 && y == 0)
+          v = min(max(v + ((raw[1 + x] - raw[0]) >> 1), 0), 255);
+      }
+      pr[k] = v;
+      bufA[p] = og[p] - v;
+    }
+    __syncwarp();
+    // ---- forward transform: rows, then columns in int64 ----
+    // Every pass reads rows of the scratch and of a matrix as 16-byte
+    // vectors: the row pass stores its output transposed, so that the
+    // column pass reads rows too.
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int y = px[k] / N, x = px[k] % N;
+      int r[N], t[N];
+      load_row<N>(bufA + y * N, r);
+      load_row<N>(tfs[x], t);
+      int a = 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j) a += r[j] * t[j];
+      bufB[x * N + y] = (a + (1 << (shift1 - 1))) >> shift1;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int y = px[k] / N, l = px[k] % N;
+      int r[N], t[N];
+      load_row<N>(bufB + l * N, r);
+      load_row<N>(tfs[y], t);
+      long long a = 0;
+#pragma unroll
+      for (int i = 0; i < N; ++i) a += (long long)t[i] * r[i];
+      c[k] = (int)((a + (1LL << (shift2 - 1))) >> shift2);
+    }
+
+    // ---- RDOQ-lite per coefficient ----
+    int last_l = -1;
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const float ldf = fabsf((float)c[k]) * QS;
+      const float ma = fminf(floorf(ldf * inv_qstep + 0.5f), 32767.0f);
+      const float lo = fmaxf(ma - 1.0f, 1.0f);
+      const float d0 = sq(ldf) * ES;
+      const float cost0 = d0 + LAM * (t.sig0[k] + dsig0f);
+      const float cost_hi = sq(ldf - ma * qstep) * ES +
+                            LAM * (t.sig1[k] + dsig1f + rt.bits(ma));
+      const float cost_lo = sq(ldf - lo * qstep) * ES +
+                            LAM * (t.sig1[k] + dsig1f + rt.bits(lo));
+      const bool pick_lo = cost_lo < cost_hi;
+      const float lvl_nz = pick_lo ? lo : ma;
+      const float cost_nz = pick_lo ? cost_lo : cost_hi;
+      L[k] = (ma > 0.0f && cost_nz < cost0) ? (int)lvl_nz : 0;
+      ld[k] = ldf;
+      if (L[k] > 0) last_l = max(last_l, t.scan[k]);
+    }
+    const int last = group_max<G>(last_l);
+    const int lastcg = last >> 4;
+
+    // ---- TU rate and distortion of the decided levels ----
+    bool paid[KPL];
+    int mb_l = 0, dc_l = 0, dz_l = 0;
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      bool sp = t.scan[k] < last;
+      if (N > 4) {
+        // Coefficient group k * 2 + lane / 16: its scan index and whether
+        // it holds a nonzero level.
+        const bool cgnz = (__ballot_sync(FULL, L[k] > 0) >> (lane & 16)) &
+                          0xffffu;
+        const int cgi = t.cgscan[k] >> 4;
+        sp = sp && (cgi == 0 || cgi == lastcg || cgnz);
+        if (i16 == 0 && cgi > 0 && cgi < lastcg)
+          mb_l += cgnz ? T.ip[IP_CSB1] : T.ip[IP_CSB0];
+      }
+      paid[k] = sp;
+      if (sp) mb_l += L[k] > 0 ? t.sig1i[k] + dsig1 : t.sig0i[k] + dsig0;
+      if (L[k] > 0) mb_l += level_mbits(L[k], rt.g1_0, rt.g1_1, rt.g2_0,
+                                        rt.g2_1);
+      if (t.scan[k] == max(last, 0)) mb_l += t.lastpb[k];
+      const float d0 = sq(ld[k]) * ES;
+      const float dc_el = L[k] > 0 ? sq(ld[k] - (float)L[k] * qstep) * ES
+                                   : d0;
+      dc_l += __float2int_rn(dc_el * 4.0f);
+      dz_l += __float2int_rn(d0 * 4.0f);
+    }
+    const int mb = T.ip[IP_CBF1] + dcbf1 + group_sum<G>(mb_l);
+    const float bits_coded = (float)mb * (1.0f / 256.0f);
+    const float d_coded = (float)group_sum<G>(dc_l) * 0.25f;
+    const float d_zero = (float)group_sum<G>(dz_l) * 0.25f;
+    const float cbf0_extra = (float)dcbf0 * (1.0f / 256.0f);
+    const float zero_cost = d_zero + (T.fp[FP_LAMCBF0] + LAM * cbf0_extra);
+    const bool keep = last >= 0 && d_coded + LAM * bits_coded < zero_cost;
+    const float tu_bits = keep ? bits_coded : T.fp[FP_CBF0] + cbf0_extra;
+
+    // ---- sign-data hiding per 4x4 coefficient group (a half-warp) ----
+    int hid_l = 0;
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int Lk = keep ? L[k] : 0;
+      const float ldf = ld[k];
+      const float lf = (float)Lk;
+      const float up = Lk > 0
+          ? (sq(ldf - (lf + 1.0f) * qstep) - sq(ldf - lf * qstep)) * ES +
+                LAM * (rt.bits(lf + 1.0f) - rt.bits(lf))
+          : 1e30f;
+      const float dn = Lk >= 2
+          ? (sq(ldf - (lf - 1.0f) * qstep) - sq(ldf - lf * qstep)) * ES +
+                LAM * (rt.bits(lf - 1.0f) - rt.bits(lf))
+          : 1e30f;
+      // The group's 16 scan positions w are distinct, so a sum of one
+      // bit per lane is a mask: bits 0-15 the nonzero levels, 16-31 the
+      // negative coefficients, by w.
+      const int w = t.scan[k] & 15;
+      const unsigned masks = (unsigned)sum16(
+          (Lk > 0 ? 1 << w : 0) | (int)((c[k] < 0 ? 1u : 0u) << (16 + w)));
+      const unsigned nz = masks & 0xffffu;
+      const int firstp = nz ? __ffs(nz) - 1 : 16;        // least w
+      const int lastp = nz ? 31 - __clz(nz) : -1;         // largest w
+      const float bag = fminf(up, dn);
+      const float minv = fmin16(bag);
+      const bool span_ok = lastp - firstp >= 4;
+      const int cf = min(max(firstp, 0), 15);
+      const int neg_first = (masks >> (16 + cf)) & 1;      // sign at cf < 0
+      // Bits 0-15: the w whose change costs least; 16-20: the count of
+      // odd levels, whose parity is the parity of the levels' sum.
+      const int pp = sum16((bag == minv ? 1 << w : 0) | (Lk & 1) << 16);
+      const int pick = __ffs(pp & 0xffff) - 1;             // least such w
+      const bool mismatch = span_ok && ((pp >> 16) & 1) != neg_first;
+      L[k] = Lk + ((mismatch && w == pick) ? (up <= dn ? 1 : -1) : 0);
+      if (span_ok && i16 == 0) ++hid_l;
+    }
+
+    // ---- levels, dequantisation, inverse transform, reconstruction ----
+    __syncwarp();                    // bufA/bufB reads above are done
+    // Dequantised levels stored transposed, as the column pass reads them.
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int qv = ((c[k] > 0) - (c[k] < 0)) * L[k];
+      q_s[row][px[k]] = qv;
+      const int d = iq > 0 ? (qv * iq_scale + (1 << (iq - 1))) >> iq
+                           : qv * iq_scale * (1 << -iq);
+      bufA[(px[k] % N) * N + px[k] / N] = min(max(d, -32768), 32767);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int i = px[k] / N, l = px[k] % N;
+      int r[N], t[N];
+      load_row<N>(bufA + l * N, r);
+      load_row<N>(tit[i], t);
+      int a = 0;
+#pragma unroll
+      for (int kk = 0; kk < N; ++kk) a += t[kk] * r[kk];
+      bufB[px[k]] = min(max((a + 64) >> 7, -32768), 32767);
+    }
+    __syncwarp();
+    int sse_l = 0, c03 = 0, c46 = 0;
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      const int i = px[k] / N, x = px[k] % N;
+      int r[N], t[N];
+      load_row<N>(bufB + i * N, r);
+      load_row<N>(tit[x], t);
+      int a = 0;
+#pragma unroll
+      for (int kk = 0; kk < N; ++kk) a += r[kk] * t[kk];
+      const int res = min(max((a + (1 << 11)) >> 12, -32768), 32767);
+      const int rv = min(max(pr[k] + res, 0), 255);
+      rec_s[row][px[k]] = rv;
+      const int e = rv - og[px[k]];
+      sse_l += e * e;
+      // CABAC bin counts of this mode's TU (row order of rate_rows), 8
+      // bits a count: c03 = counts 0-3, c46 = counts 4, 5, the nonzero
+      // levels and the hidden signs.
+      const int Lv = L[k];
+      c03 += (paid[k] && Lv == 0) | (paid[k] && Lv > 0) << 8 |
+             (Lv == 1) << 16 | (Lv >= 2) << 24;
+      c46 += (Lv == 2) | (Lv >= 3) << 8 | (Lv > 0) << 16;
+    }
+    c46 += hid_l << 24;
+    const int sse = group_sum<G>(sse_l);
+    c03 = group_sum<G>(c03);
+    c46 = group_sum<G>(c46);
+    if (gl == 0) {
+      const float tu = tu_bits - (float)(c46 >> 24);
+      cost_s[row] = (float)sse + LAM * (tu + t.mode_bits);
+      cnt_s[row][0] = c03 & 255;
+      cnt_s[row][1] = (c03 >> 8) & 255;
+      cnt_s[row][2] = (c03 >> 16) & 255;
+      cnt_s[row][3] = (c03 >> 24) & 255;
+      cnt_s[row][4] = c46 & 255;
+      cnt_s[row][5] = (c46 >> 8) & 255;
+      cnt_s[row][6] = ((c46 >> 16) & 255) > 0;
+      cnt_s[row][7] = 1;
+    }
+    __syncwarp();                    // scratch reused by the next pass
+  }
+
+  // ---- first minimum over ascending mode ids, then the winner's data ----
+  // Mode id = rank * MPC + row.  In a cluster every block gathers the
+  // slot's costs in cost_all (pushed by the cluster's blocks, its own
+  // included); one warp takes the first minimum, and the block that holds
+  // the winner writes it.
+  if constexpr (CL == 1) {
+    __syncthreads();
+  } else {
+    cluster_wait();
+#pragma unroll
+    for (int pass = 0; pass < PASSES; ++pass) {
+      const int row = pass * SLOTS + slot;
+      if (gl == 0 && row < MPC)
+        for (int r = 0; r < CL; ++r)
+          push_f32(&cost_all[rank * MPC + row], cost_s[row], &costs_in, r);
+    }
+    if (tid < 32) mbar_wait0(&costs_in);
+  }
+  const float* costs = CL == 1 ? cost_s : cost_all;
+  if (tid < 32) {
+    const float inf = __int_as_float(0x7f800000);
+    const float c0 = tid < n_modes ? costs[tid] : inf;
+    const float c1 = tid + 32 < n_modes ? costs[tid + 32] : inf;
+    float v = fminf(c0, c1);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+    int id = c0 == v ? tid : c1 == v ? tid + 32 : M_PAD;
+    id = __reduce_min_sync(FULL, id);
+    if (tid == 0) s_best = id < M_PAD ? id : 0;
+  }
+  __syncthreads();
+  if constexpr (CL > 1) {
+    // This block has all its bytes (warp 0 waited for them); when every
+    // block has arrived, no push of the cluster is in flight.
+    cluster_arrive_relaxed();
+    cluster_wait();
+  }
+  const int bi = s_best;
+  if (bi / MPC != rank) return;
+  const int br = bi % MPC;
+  if (tid == 0) {
+    cost[s] = costs[bi];
+    best[s] = bi;
+  }
+  for (int p = tid; p < NN; p += NT) {
+    rec[s * NN + p] = rec_s[br][p];
+    q[s * NN + p] = q_s[br][p];
+  }
+  if (tid < 8) cnt[s * 8 + tid] = cnt_s[br][tid];
+}
+
+// ---- n = 16 and 32: a block per (slot, mode), then a select kernel ----
+
 template <int N>
 __global__ void __launch_bounds__(256)
 trial_modes_kernel(int b, const int* __restrict__ ref_top,
@@ -110,7 +733,7 @@ trial_modes_kernel(int b, const int* __restrict__ ref_top,
                    const int* __restrict__ orig,
                    const float* __restrict__ mode_bits,
                    const int* __restrict__ rate_rows,
-                   const int* __restrict__ nn_pred, Tables T,
+                   const int* __restrict__ nn_pred, const Tables T,
                    float* __restrict__ cost_m, int* __restrict__ rec_m,
                    int* __restrict__ q_m, int* __restrict__ cnt_m) {
   constexpr int NN = N * N;
@@ -243,12 +866,14 @@ trial_modes_kernel(int b, const int* __restrict__ ref_top,
   const float* sig1 = T.sig1 + rows_mode * NN;
   const int* sig0i = T.sig0i + rows_mode * NN;
   const int* sig1i = T.sig1i + rows_mode * NN;
-  const int dsig0 = rate_rows[0 * b + s], dsig1 = rate_rows[1 * b + s];
-  const Rates rt{T.ip[IP_G1_0] + rate_rows[2 * b + s],
-                 T.ip[IP_G1_1] + rate_rows[3 * b + s],
-                 T.ip[IP_G2_0] + rate_rows[4 * b + s],
-                 T.ip[IP_G2_1] + rate_rows[5 * b + s]};
-  const int dcbf0 = rate_rows[6 * b + s], dcbf1 = rate_rows[7 * b + s];
+  const int dsig0 = rate_row(rate_rows, 0, b, s);
+  const int dsig1 = rate_row(rate_rows, 1, b, s);
+  const Rates rt{T.ip[IP_G1_0] + rate_row(rate_rows, 2, b, s),
+                 T.ip[IP_G1_1] + rate_row(rate_rows, 3, b, s),
+                 T.ip[IP_G2_0] + rate_row(rate_rows, 4, b, s),
+                 T.ip[IP_G2_1] + rate_row(rate_rows, 5, b, s)};
+  const int dcbf0 = rate_row(rate_rows, 6, b, s);
+  const int dcbf1 = rate_row(rate_rows, 7, b, s);
   const float QS = T.fp[FP_QSCALE], ES = T.fp[FP_ERRSCALE];
   const float LAM = T.fp[FP_LAM];
   const int qbits = T.ip[IP_QBITS];
@@ -466,69 +1091,90 @@ __global__ void select_kernel(int nn, int n_modes,
 }
 
 template <int N>
-void launch_modes(dim3 grid, cudaStream_t st, int b, const int* rt,
-                  const int* rl, const int* orig, const float* mb,
-                  const int* rr, const int* nnp, const Tables& T,
-                  float* cost_m, int* rec_m, int* q_m, int* cnt_m) {
+void launch_modes(int b, cudaStream_t st, const int* rt, const int* rl,
+                  const int* orig, const float* mb, const int* rr,
+                  const int* nnp, const Tables& T, int* out) {
+  const int n_modes = T.ip[IP_NMODES];
+  const int nn = N * N;
+  float* cost = reinterpret_cast<float*>(out);
+  int* best = out + b;
+  int* rec = best + b;
+  int* q = rec + (size_t)b * nn;
+  int* cnt = q + (size_t)b * nn;
+  float* cost_m = reinterpret_cast<float*>(cnt + (size_t)b * 8);
+  int* rec_m = reinterpret_cast<int*>(cost_m) + (size_t)b * M_PAD;
+  int* q_m = rec_m + (size_t)b * M_PAD * nn;
+  int* cnt_m = q_m + (size_t)b * M_PAD * nn;
   const int threads = N * N < 256 ? N * N : 256;
-  trial_modes_kernel<N><<<grid, threads, 0, st>>>(
+  trial_modes_kernel<N><<<dim3(b, n_modes), threads, 0, st>>>(
       b, rt, rl, orig, mb, rr, nnp, T, cost_m, rec_m, q_m, cnt_m);
+  if (cudaPeekAtLastError() != cudaSuccess) return;
+  select_kernel<<<b, 256, 0, st>>>(nn, n_modes, cost_m, rec_m, q_m, cnt_m,
+                                   cost, best, rec, q, cnt);
+}
+
+template <int N, int CL>
+cudaError_t launch_small(int b, cudaStream_t st, const int* rt, const int* rl,
+                         const int* orig, const float* mb, const int* rr,
+                         const int* nnp, const Tables& T, int* out) {
+  const int nn = N * N;
+  float* cost = reinterpret_cast<float*>(out);
+  int* best = out + b;
+  int* rec = best + b;
+  int* q = rec + (size_t)b * nn;
+  int* cnt = q + (size_t)b * nn;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * CL);
+  cfg.blockDim = dim3(Small<N, CL>::THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, trial_small_kernel<N, CL>, b, rt, rl, orig,
+                            mb, rr, nnp, T, cost, best, rec, q, cnt);
 }
 
 }  // namespace
 
-extern "C" int unit_trial(
-    int n, int b, int n_modes, const void* ref_top, const void* ref_left,
-    const void* orig, const void* mode_bits, const void* rate_rows,
-    const void* nn_pred, const void* g0, const void* g1, const void* frac,
-    const void* use_filt, const void* tf, const void* ti, const void* scan, const void* sig0,
-    const void* sig1, const void* sig0i, const void* sig1i,
-    const void* lastpb, const void* iparams, const void* fparams,
-    void* cost_m, void* rec_m, void* q_m, void* cnt_m, void* cost,
-    void* best, void* rec, void* q, void* cnt, void* stream) {
-  if (b < 1 || n_modes < 1 || n_modes > M_PAD) return (int)cudaErrorInvalidValue;
-  const Tables T{(const int*)g0,    (const int*)g1,     (const int*)frac,
-                 (const int*)use_filt, (const int*)tf,  (const int*)ti,
-                 (const int*)scan,  (const float*)sig0, (const float*)sig1,
-                 (const int*)sig0i, (const int*)sig1i,  (const int*)lastpb,
-                 (const int*)iparams, (const float*)fparams};
+// `tables` is a host pointer to the table set's Tables struct; `out` the
+// call's output buffer (layout above); `rate_rows` and `nn_pred` may be
+// null.
+extern "C" int unit_trial(int n, int b, const void* ref_top,
+                          const void* ref_left, const void* orig,
+                          const void* mode_bits, const void* rate_rows,
+                          const void* nn_pred, const void* tables, void* out,
+                          void* stream) {
+  const Tables& T = *static_cast<const Tables*>(tables);
+  const int n_modes = T.ip[IP_NMODES];
+  if (b < 1 || n_modes < 1 || n_modes > M_PAD)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(b, n_modes);
   const int* rt = (const int*)ref_top;
   const int* rl = (const int*)ref_left;
   const int* og = (const int*)orig;
   const float* mb = (const float*)mode_bits;
   const int* rr = (const int*)rate_rows;
   const int* nnp = (const int*)nn_pred;
-  float* cm = (float*)cost_m;
-  int* recm = (int*)rec_m;
-  int* qm = (int*)q_m;
-  int* cntm = (int*)cnt_m;
+  int* o = (int*)out;
+  cudaError_t e = cudaSuccess;
   switch (n) {
     case 4:
-      launch_modes<4>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
-                     cntm);
+      e = launch_small<4, CLUSTER_4>(b, st, rt, rl, og, mb, rr, nnp, T, o);
       break;
     case 8:
-      launch_modes<8>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
-                     cntm);
+      e = launch_small<8, CLUSTER_8>(b, st, rt, rl, og, mb, rr, nnp, T, o);
       break;
-    case 16:
-      launch_modes<16>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
-                      cntm);
-      break;
-    case 32:
-      launch_modes<32>(grid, st, b, rt, rl, og, mb, rr, nnp, T, cm, recm, qm,
-                      cntm);
-      break;
+    case 16: launch_modes<16>(b, st, rt, rl, og, mb, rr, nnp, T, o); break;
+    case 32: launch_modes<32>(b, st, rt, rl, og, mb, rr, nnp, T, o); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  select_kernel<<<b, 256, 0, st>>>(n * n, n_modes, cm, recm, qm, cntm,
-                                   (float*)cost, (int*)best, (int*)rec,
-                                   (int*)q, (int*)cnt);
-  return (int)cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 extern "C" const char* unit_trial_error_string(int err) {

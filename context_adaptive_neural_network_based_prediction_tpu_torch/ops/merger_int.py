@@ -15,17 +15,26 @@ wavefront slots, P = 80 context positions, O = 16 outputs, M = 32, 64,
   launch the kernel of `csrc/merger_int.cu` (a failed build or launch
   raises), or the plain version when `impl="plain"` (for comparing).
   `launches[M]` counts the kernel's launches per map count.
+
+The kernel reads the weights as (P, M, O), each map's 16 outputs of one
+position contiguous: `prepare_weight` makes that layout once per weight
+tensor, checks the weights and biases then, and keeps it while the tensor
+lives and is not changed in place.  Per call the wrapper checks only x.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.weak
 
 from . import _cuda_build
+
+O_OUT = 16          # outputs per map, the kernel's only width
 
 # Launches of the CUDA kernel, per map count M, counted where the wrapper
 # launches it.  `reset_launch_counts` empties it.
 launches: dict = {}
+_prepared = torch.utils.weak.WeakIdKeyDictionary()
 
 
 def reset_launch_counts():
@@ -45,18 +54,37 @@ def _check(name, t, shape, dtype, device):
     _cuda_build.check_tensor(name, t, shape, (dtype,), device)
 
 
+def prepare_weight(w, b):
+    """The kernel's weight layout (P, M, O) int16 of `w` (P, O, M), on its
+    device.  Checks w and b (O, M) int32 and makes the layout once per
+    weight tensor, and again after an in-place change of it or for
+    another bias."""
+    got = _prepared.get(w)
+    if got is not None and got[0] == w._version and got[1] is b \
+            and got[2] == b._version:
+        return got[3]
+    p, o, m = w.shape
+    _check("w", w, (p, o, m), torch.int16, w.device)
+    _check("b", b, (o, m), torch.int32, w.device)
+    if o != O_OUT:
+        raise ValueError(f"w: the kernel takes O = {O_OUT}, got O = {o}")
+    wp = w.permute(0, 2, 1).contiguous()
+    _prepared[w] = (w._version, b, b._version, wp)
+    return wp
+
+
 def _kernel(x, w, b):
-    lib = _cuda_build.library("merger_int")
-    n, p, m = x.shape
-    o = w.shape[1]
-    dev = x.device
-    _check("x", x, (n, p, m), torch.int16, dev)
-    _check("w", w, (p, o, m), torch.int16, dev)
-    _check("b", b, (o, m), torch.int32, dev)
-    out = torch.empty((m, n, o), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.merger_int(n, p, o, m, x.data_ptr(), w.data_ptr(),
-                         b.data_ptr(), out.data_ptr(), stream)
+    wp = prepare_weight(w, b)
+    p, m, o = wp.shape
+    n = x.shape[0]
+    idx = wp.get_device()
+    if not (x.dtype is torch.int16 and x.shape == (n, p, m)
+            and x.get_device() == idx and x.is_contiguous()):
+        _check("x", x, (n, p, m), torch.int16, wp.device)
+    out = torch.empty((m, n, o), dtype=torch.int32, device=wp.device)
+    err = _cuda_build.library("merger_int").merger_int(
+        n, p, m, x.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(
             f"merger_int kernel (N={n}, P={p}, O={o}, M={m}) failed: "

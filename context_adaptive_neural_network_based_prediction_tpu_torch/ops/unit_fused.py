@@ -22,7 +22,10 @@ mode (the counts keep the JAX package's cbf=0 sig-bin bias).
   the card TF32 is off).
 * `trial_apply` is the wrapper: CPU tensors go to the plain version, CUDA
   tensors to the kernel of `csrc/unit_trial.cu`.  `impl="plain"` asks for
-  the plain version on the card (for comparing the two).
+  the plain version on the card (for comparing the two).  Per call the
+  wrapper checks its inputs with one predicate, makes one output
+  allocation and passes the table set as one pointer (`TableSet`, built by
+  `consts_from_numpy`); at n = 4 and 8 a call is one launch.
 
 Under the NN policies a PNN prediction `nn_pred` (b, n, n) takes the place
 of mode 18's prediction (`nn_policy="sub18"`, substitution) or fills the
@@ -31,6 +34,8 @@ package (`ops/unit_fused.py:426-430`); without one it is the zero block.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -363,17 +368,68 @@ def _kernel_tables(n, n_modes, c, compact, lastpb, ipp, SB, lam, qscale,
 
 # --------------------------------------------------------------- tensors --
 
+# The kernel's tables, in the order of the pointers of its `Tables` struct
+# (csrc/unit_trial.cu), then its integer and float parameters.
+TABLE_KEYS = ("k_g0", "k_g1", "k_frac", "k_use_filt", "k_tf", "k_ti",
+              "k_scan", "k_sig0", "k_sig1", "k_sig0i", "k_sig1i", "k_lastpb")
+PARAM_KEYS = ("k_iparams", "k_fparams")
+_ALIGN = 4          # table offsets in 4-byte words: 16-byte aligned
+
+
+class TableSet(ctypes.Structure):
+    """The kernel's `Tables` struct: device pointers into the table block
+    and the scalar parameters by value.  The kernel gets a copy of it as
+    its argument, so no parameter costs a load on the card."""
+    _fields_ = ([(k[2:], ctypes.c_void_p) for k in TABLE_KEYS]
+                + [("ip", ctypes.c_int * 16), ("fp", ctypes.c_float * 8)])
+
+
+def pack_tables(cst: dict):
+    """The kernel tables of a `build_consts` dict in one int32 block: (block
+    (words,) int32 numpy, {key: (offset in words, shape, dtype)}); float
+    tables are stored as their bits."""
+    parts, layout, off = [], {}, 0
+    for k in TABLE_KEYS + PARAM_KEYS:
+        a = np.ascontiguousarray(cst[k])
+        words = a.reshape(-1).view(np.int32)
+        pad = -len(words) % _ALIGN
+        layout[k] = (off, a.shape, a.dtype)
+        parts += [words, np.zeros(pad, np.int32)]
+        off += len(words) + pad
+    return np.concatenate(parts), layout
+
+
+def _table_views(block, layout):
+    """{key: tensor}: each table as a view of the block."""
+    out = {}
+    for k, (off, shape, dtype) in layout.items():
+        n = int(np.prod(shape))
+        t = block[off:off + n]
+        if dtype == np.float32:
+            t = t.view(torch.float32)
+        out[k] = t.view(shape)
+    return out
+
+
 def consts_from_numpy(cst: dict, device="cuda") -> dict:
     """A `build_consts` (or `size_consts`) dict of numpy tables -> the
     port's dict: every array becomes a tensor on `device`, other values
     stay as they are.
+
+    For this package's `build_consts` dict the kernel's tables (`k_*`) go
+    into one block on `device` (`k_block`; `k_layout` gives each table's
+    offset) and become views of it; `k_struct` is the kernel's `Tables`
+    struct of that block, made here once, and `k_device` its device.
 
     For a `build_consts` dict it adds the per-mode columns the plain trial
     reads (`*_m` keys), taken from the lane-expanded tables (every slot
     column of a mode block holds the same value), so the plain trial runs
     from the JAX package's own tables as well as from the port's."""
     out = {}
+    kernel_tables = "k_g0" in cst
     for k, v in cst.items():
+        if kernel_tables and (k in TABLE_KEYS or k in PARAM_KEYS):
+            continue
         if isinstance(v, np.ndarray) and v.dtype != object:
             a = np.ascontiguousarray(v)
             if a.dtype == np.bool_:
@@ -381,6 +437,18 @@ def consts_from_numpy(cst: dict, device="cuda") -> dict:
             out[k] = torch.from_numpy(a.copy()).to(device)
         else:
             out[k] = v
+    if kernel_tables:
+        words, layout = pack_tables(cst)
+        block = torch.from_numpy(words).to(device)
+        out.update(_table_views(block, layout))
+        base = block.data_ptr()
+        struct = TableSet(
+            *(base + 4 * layout[k][0] for k in TABLE_KEYS),
+            (ctypes.c_int * 16)(*np.asarray(cst["k_iparams"]).tolist()),
+            (ctypes.c_float * 8)(*np.asarray(cst["k_fparams"]).tolist()))
+        out.update(k_block=block, k_layout=layout, k_struct=struct,
+                   k_struct_ptr=ctypes.addressof(struct),
+                   k_device=block.device, k_index=block.get_device())
     if "P2" in cst:
         B = cst["B"]
         # Lane-expanded table -> per-mode columns (nn, M) (or (nn, 1) where
@@ -729,58 +797,73 @@ def _check(name, t, shape, dtype, device):
                          f"{t.device} (contiguous={t.is_contiguous()})")
 
 
+def _ok(t, shape, dtype, index):
+    return (t.dtype is dtype and t.shape == shape
+            and t.get_device() == index and t.is_contiguous())
+
+
+def out_words(n, b):
+    """int32 words of one kernel call's output buffer: cost, best, rec, q,
+    counts, and at n = 16 and 32 the per-mode scratch of its select pass
+    (layout in csrc/unit_trial.cu)."""
+    nn = n * n
+    return b * (2 + 2 * nn + 8) + (b * M_PAD * (1 + 2 * nn + 8)
+                                   if n >= 16 else 0)
+
+
 def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows,
                   nn_pred=None):
     from . import _cuda_build
 
-    lib = _cuda_build.library("unit_trial")
-    n, nn = tc["n"], tc["nn"]
-    b = ref_top.shape[0]
-    dev = ref_top.device
-    if "k_g0" not in tc:
+    if "k_struct" not in tc:
         raise ValueError("consts lack the kernel tables (k_*): build them "
                          "with this package's build_consts")
+    n = tc["n"]
+    b = ref_top.shape[0]
+    dev, idx = tc["k_device"], tc["k_index"]
     i32, f32 = torch.int32, torch.float32
-    n_modes = tc["n_modes"]
-    _check("ref_top", ref_top, (b, 2 * n + 1), i32, dev)
-    _check("ref_left", ref_left, (b, 2 * n + 1), i32, dev)
-    _check("orig", orig, (b, n, n), i32, dev)
-    _check("mode_bits", mode_bits, (b, n_modes), f32, dev)
-    _check("rate_rows", rate_rows, (8, b), i32, dev)
-    if nn_pred is not None:
+    s = (b, 2 * n + 1)
+    u = (b, n, n)
+    if not (_ok(ref_top, s, i32, idx) and _ok(ref_left, s, i32, idx)
+            and _ok(orig, u, i32, idx)
+            and _ok(mode_bits, (b, tc["n_modes"]), f32, idx)
+            and (rate_rows is None or _ok(rate_rows, (8, b), i32, idx))
+            and (nn_pred is None or _ok(nn_pred, u, i32, idx))):
+        _check("ref_top", ref_top, s, i32, dev)
+        _check("ref_left", ref_left, s, i32, dev)
+        _check("orig", orig, u, i32, dev)
+        _check("mode_bits", mode_bits, (b, tc["n_modes"]), f32, dev)
+        if rate_rows is not None:
+            _check("rate_rows", rate_rows, (8, b), i32, dev)
         # Without one the kernel predicts the zero block for the PNN mode.
-        _check("nn_pred", nn_pred, (b, n, n), i32, dev)
-    for k in ("k_g0", "k_g1", "k_frac", "k_use_filt", "k_tf", "k_ti",
-              "k_scan", "k_sig0", "k_sig1", "k_sig0i", "k_sig1i",
-              "k_lastpb", "k_iparams", "k_fparams"):
-        if tc[k].device != dev:
-            raise ValueError(f"table {k} is on {tc[k].device}, not {dev}")
-    cost_m = torch.empty((b, M_PAD), dtype=f32, device=dev)
-    rec_m = torch.empty((b, M_PAD, nn), dtype=i32, device=dev)
-    q_m = torch.empty((b, M_PAD, nn), dtype=i32, device=dev)
-    cnt_m = torch.empty((b, M_PAD, 8), dtype=i32, device=dev)
-    cost = torch.empty((b,), dtype=f32, device=dev)
-    best = torch.empty((b,), dtype=i32, device=dev)
-    rec = torch.empty((b, n, n), dtype=i32, device=dev)
-    q = torch.empty((b, n, n), dtype=i32, device=dev)
-    cnt = torch.empty((b, 8), dtype=i32, device=dev)
-    p = lambda t: t.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.unit_trial(
-        n, b, n_modes, p(ref_top), p(ref_left), p(orig), p(mode_bits),
-        p(rate_rows), None if nn_pred is None else p(nn_pred),
-        p(tc["k_g0"]), p(tc["k_g1"]), p(tc["k_frac"]), p(tc["k_use_filt"]),
-        p(tc["k_tf"]), p(tc["k_ti"]), p(tc["k_scan"]), p(tc["k_sig0"]),
-        p(tc["k_sig1"]), p(tc["k_sig0i"]), p(tc["k_sig1i"]),
-        p(tc["k_lastpb"]), p(tc["k_iparams"]), p(tc["k_fparams"]),
-        p(cost_m), p(rec_m), p(q_m), p(cnt_m),
-        p(cost), p(best), p(rec), p(q), p(cnt), stream)
+        if nn_pred is not None:
+            _check("nn_pred", nn_pred, u, i32, dev)
+    # One allocation per call: no output buffer is reused by a later call.
+    out = torch.empty(out_words(n, b), dtype=i32, device=dev)
+    err = _cuda_build.library("unit_trial").unit_trial(
+        n, b, ref_top.data_ptr(), ref_left.data_ptr(), orig.data_ptr(),
+        mode_bits.data_ptr(),
+        None if rate_rows is None else rate_rows.data_ptr(),
+        None if nn_pred is None else nn_pred.data_ptr(), tc["k_struct_ptr"],
+        out.data_ptr(), torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(
             f"unit_trial kernel (n={n}, b={b}) failed: "
             f"{_cuda_build.error_string('unit_trial', err)}")
     launches[n] += 1
-    return cost, best, rec, q, cnt
+    return split_outputs(out, n, b)
+
+
+def split_outputs(out, n, b):
+    """(cost (b,) f32, best (b,), rec (b, n, n), q (b, n, n), counts (b, 8))
+    as views of a kernel call's output buffer."""
+    nn = n * n
+    sizes = (b, b, b * nn, b * nn, b * 8)
+    if n >= 16:
+        sizes += (out.numel() - sum(sizes),)
+    cost, best, rec, q, cnt = out.split_with_sizes(sizes)[:5]
+    return (cost.view(torch.float32), best, rec.view(b, n, n),
+            q.view(b, n, n), cnt.view(b, 8))
 
 
 def trial_apply(tc, ref_top, ref_left, orig, mode_bits, rate_rows=None,
@@ -794,15 +877,15 @@ def trial_apply(tc, ref_top, ref_left, orig, mode_bits, rate_rows=None,
     CPU tensors run the plain version.  CUDA tensors run the kernel, or the
     plain version when `impl="plain"` (for holding the two against each
     other); a kernel that cannot build or launch raises."""
-    if rate_rows is None:
-        rate_rows = torch.zeros((8, ref_top.shape[0]), dtype=torch.int32,
-                                device=ref_top.device)
+    if impl == "kernel" and ref_top.is_cuda:
+        return _kernel_trial(tc, ref_top, ref_left, orig, mode_bits,
+                             rate_rows, nn_pred)
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "plain" or ref_top.device.type == "cpu":
+        if rate_rows is None:
+            rate_rows = torch.zeros((8, ref_top.shape[0]), dtype=torch.int32,
+                                    device=ref_top.device)
         return _plain_trial(tc, ref_top, ref_left, orig, mode_bits,
                             rate_rows, nn_pred)
-    if ref_top.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ref_top.device}")
-    return _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows,
-                         nn_pred)
+    raise ValueError(f"no kernel for device {ref_top.device}")

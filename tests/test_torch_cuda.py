@@ -2,9 +2,11 @@
 
 They hold the CUDA kernels against their plain PyTorch versions on the
 card (exactly): the unit trial, also with a PNN prediction under the
-substitution (`sub18`) and switch (`append`) policies, and the PNN's
-integer merger at every map count of the codec, with random inputs and
-inputs at the frozen models' caps.  The kernel path's encodes of the small
+substitution (`sub18`) and switch (`append`) policies, the one-launch
+trial of n = 4 and 8 at 1 to 31 slots (with the launches the profiler
+sees per call), and the PNN's integer merger at every map count of the
+codec, with random inputs and inputs at the frozen models' caps, and
+after an in-place change of its weights.  The kernel path's encodes of the small
 test frames, regular and NN policies, are held against the digests
 captured from the JAX package.  The float PNN's kernels (the FC layers and
 the float merger) are held against their plain versions by tolerance, at
@@ -188,6 +190,101 @@ def test_kernel_matches_plain_with_nn_pred(dev, n, policy):
     nn_mode = 18 if policy == "sub18" else 35
     best = unit_fused.trial_apply(tc, *args, nn_pred=nn_pred)[1]
     assert (best == nn_mode).any()
+
+
+def small_trial_case(dev, n, b, qp, policy):
+    """Table set, inputs (b slots: the last ones the worst-case residuals
+    of `trial_inputs`, nonzero rate rows in odd slots of the 4-slot case)
+    and a PNN prediction for the fused n = 4 / 8 trial."""
+    n_modes = 36 if policy == "append" else 35
+    c = wavefront2._unit_consts(n, qp, n_modes)
+    cst = unit_fused.build_consts(
+        n, n_modes, c, rate_model.scalar_bits(qp), rdo.lambda_for_qp(qp),
+        transform.QUANT_SCALES[qp % 6], transform.INV_QUANT_SCALES[qp % 6],
+        b_eff=b, nn_policy=policy)
+    tc = unit_fused.consts_from_numpy(cst, device=dev)
+    rt, rl, og, _, rr = trial_inputs(n, max(b, 4), 1000 * n + 10 * b + qp)
+    rng = np.random.default_rng(b)
+    mb = rng.uniform(1.0, 6.0, (b, n_modes)).astype(np.float32)
+    rt, rl, og, rr = rt[-b:], rl[-b:], og[-b:], rr[:, -b:]
+    nnp = np.clip(og + rng.integers(-3, 4, og.shape), 0, 255)
+    return tc, [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (rt, rl, og, mb, rr, nnp.astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("b", [1, 2, 17, 31])
+@pytest.mark.parametrize("qp", [22, 32, 37])
+@pytest.mark.parametrize("policy", [None, "sub18", "append"])
+def test_fused_trial_edges(dev, n, b, qp, policy):
+    """The one-launch trial at n = 4 and 8 at the edges of its design:
+    1 to 31 blocks, half-warp and warp modes, the modes past the last
+    (35 modes: the 36th lane group repeats one), with and without a PNN
+    prediction and rate rows (None: zero rows), equal to the plain trial
+    bit for bit; each call one launch; two calls the same bits."""
+    tc, (rt, rl, og, mb, rr, nnp) = small_trial_case(dev, n, b, qp, policy)
+    for pred in ([None, nnp] if policy else [None]):
+        for rows in (rr, None):
+            before = unit_fused.launches[n]
+            got = unit_fused.trial_apply(tc, rt, rl, og, mb, rows,
+                                         nn_pred=pred)
+            again = unit_fused.trial_apply(tc, rt, rl, og, mb, rows,
+                                           nn_pred=pred)
+            want = unit_fused.trial_apply(tc, rt, rl, og, mb, rows,
+                                          impl="plain", nn_pred=pred)
+            torch.cuda.synchronize()
+            assert unit_fused.launches[n] == before + 2
+            for field, x, y, z in zip(FIELDS, got, want, again):
+                if x.dtype == torch.float32:
+                    x, y, z = (t.view(torch.int32) for t in (x, y, z))
+                assert torch.equal(x, y), (field, pred is None, rows is None)
+                assert torch.equal(x, z), (field, "repeated")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_trial_launches_per_call(dev, n):
+    """What the card runs for one trial call (profiler): one kernel at n =
+    4 and 8, the per-mode kernel and the select kernel at 16 and 32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tc, (rt, rl, og, mb, rr, _) = small_trial_case(dev, n, 31, 32, None)
+    unit_fused.trial_apply(tc, rt, rl, og, mb, rr)
+    torch.cuda.synchronize()
+    calls = 4
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            unit_fused.trial_apply(tc, rt, rl, og, mb, rr)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if getattr(e, "device_type", None)
+             == torch.autograd.DeviceType.CUDA]
+    want = (("trial_small_kernel",) if n <= 8
+            else ("trial_modes_kernel", "select_kernel"))
+    assert len(names) == calls * len(want), names
+    for key in want:
+        assert sum(key in x for x in names) == calls, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [32, 64, 128, 256])
+def test_merger_kernel_reprepares_after_in_place_change(dev, m):
+    """The weights' kernel layout is made once per tensor and made again
+    after an in-place change; the kernel then equals the plain version on
+    the changed weights."""
+    x, w, b = [torch.from_numpy(a).to(dev)
+               for a in merger_inputs(m, 31, 11 * m, False)]
+    first = merger_int.merger_int_forward(x, w, b)
+    wp = merger_int.prepare_weight(w, b)
+    assert merger_int.prepare_weight(w, b) is wp
+    w[7, 3].neg_()
+    b[2].add_(5)
+    got = merger_int.merger_int_forward(x, w, b)
+    want = merger_int.merger_int_forward(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    assert merger_int.prepare_weight(w, b) is not wp
+    assert torch.equal(got, want) and not torch.equal(got, first)
 
 
 def nn_bundles():

@@ -1,7 +1,8 @@
-"""The variant tool of the float kernels (`ops/kernel_variants.py`, run on
-the card) stays in step with the sources: every line a variant replaces
-is in `csrc/fc_forward.cu` or `csrc/merger.cu`, and the sweep covers the
-tile widths and splits that `fc_forward.plan` picks at its shapes."""
+"""The variant tool of the kernels (`ops/kernel_variants.py`, run on the
+card) stays in step with the sources: every line a variant replaces is in
+`csrc/fc_forward.cu`, `csrc/merger.cu`, `csrc/merger_int.cu` or
+`csrc/unit_trial.cu`, and the sweep covers the tile widths and splits
+that `fc_forward.plan` picks at its shapes."""
 
 import os
 
@@ -16,12 +17,17 @@ def source(name):
         return f.read()
 
 
+VARIANTS = {"fc_forward.cu": kernel_variants.FC_PROBES,
+            "merger.cu": kernel_variants.MERGER_VARIANTS,
+            "merger_int.cu": kernel_variants.MERGER_INT_VARIANTS,
+            "unit_trial.cu": {**kernel_variants.TRIAL_VARIANTS,
+                              **kernel_variants.TRIAL_PROBES}}
+
+
 @pytest.mark.parametrize("name,file", [
-    *((n, "fc_forward.cu") for n in kernel_variants.FC_PROBES),
-    *((n, "merger.cu") for n in kernel_variants.MERGER_VARIANTS)])
+    (n, f) for f, variants in VARIANTS.items() for n in variants])
 def test_variant_lines_are_in_the_source(name, file):
-    variants = (kernel_variants.FC_PROBES if file == "fc_forward.cu"
-                else kernel_variants.MERGER_VARIANTS)
+    variants = VARIANTS[file]
     text = source(file)
     for old, new in variants[name]:
         assert old in text and old != new

@@ -132,3 +132,49 @@ def test_kernel_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="want contiguous"):
         t_merger_int._check("w", wt.transpose(0, 1), (P, O, 32),
                             torch.int16, xt.device)
+
+
+def test_weight_preparation_layout_and_cache():
+    """The kernel's weight layout is the (P, O, M) -> (P, M, O) transpose,
+    made once per weight tensor, again after an in-place change of the
+    weights or for another bias tensor."""
+    x, w, b = inputs(64, 17, False)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(1, 2, 0)))
+    bt = torch.from_numpy(np.ascontiguousarray(b.T))
+    wp = t_merger_int.prepare_weight(wt, bt)
+    np.testing.assert_array_equal(wp.numpy(), wt.numpy().transpose(0, 2, 1))
+    assert wp.is_contiguous() and wp.dtype == torch.int16
+    assert t_merger_int.prepare_weight(wt, bt) is wp
+    wt[3, 5, 7] += 1
+    wp2 = t_merger_int.prepare_weight(wt, bt)
+    assert wp2 is not wp and int(wp2[3, 7, 5]) == int(wt[3, 5, 7])
+    np.testing.assert_array_equal(wp2.numpy(), wt.numpy().transpose(0, 2, 1))
+    assert t_merger_int.prepare_weight(wt, bt.clone()) is not wp2
+
+
+@pytest.mark.parametrize("bad", ["w_dtype", "b_dtype", "b_shape", "o_width",
+                                 "x_dtype", "x_shape", "x_layout"])
+def test_kernel_wrapper_refuses_bad_inputs(bad):
+    """The kernel path refuses what the kernel does not take, before it
+    builds or launches anything: the weights and biases when they are
+    prepared, x on every call."""
+    x, w, b = inputs(32, 5, False)
+    xt = torch.from_numpy(x)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(1, 2, 0)))
+    bt = torch.from_numpy(np.ascontiguousarray(b.T))
+    if bad == "w_dtype":
+        wt = wt.to(torch.int32)
+    elif bad == "b_dtype":
+        bt = bt.to(torch.int64)
+    elif bad == "b_shape":
+        bt = bt[:, :16].contiguous()
+    elif bad == "o_width":
+        wt, bt = wt[:, :8].contiguous(), bt[:8].contiguous()
+    elif bad == "x_dtype":
+        xt = xt.to(torch.int32)
+    elif bad == "x_shape":
+        xt = xt[:, :40].contiguous()
+    else:
+        xt = xt.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        t_merger_int._kernel(xt, wt, bt)

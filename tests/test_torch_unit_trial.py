@@ -14,6 +14,8 @@ unit size.  The CUDA kernel is held against the plain trial in
 `tests/test_torch_cuda.py`.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -236,3 +238,109 @@ def test_i32_sum_wraps_like_int32():
     want = np.sum(x.numpy(), axis=0, dtype=np.int32, keepdims=True)
     got = t_unit_fused._i32_sum(x, 0).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_table_block_holds_every_table(n):
+    """`consts_from_numpy` puts the kernel's tables in one block: each
+    table at its offset (16-byte aligned) with its values, the `k_*`
+    tensors views of the block, and the kernel's `TableSet` pointing at
+    each table, with the scalar parameters by value."""
+    cst = consts(n, 32, "port")
+    tc = t_unit_fused.consts_from_numpy(cst, device="cpu")
+    block, layout = tc["k_block"], tc["k_layout"]
+    assert block.dtype == torch.int32 and block.is_contiguous()
+    assert set(layout) == set(t_unit_fused.TABLE_KEYS
+                              + t_unit_fused.PARAM_KEYS)
+    words = block.numpy()
+    for k, (off, shape, dtype) in layout.items():
+        want = np.ascontiguousarray(cst[k])
+        assert off % 4 == 0 and shape == want.shape and dtype == want.dtype
+        got = words[off:off + want.size].view(dtype).reshape(shape)
+        np.testing.assert_array_equal(got, want, err_msg=k)
+        np.testing.assert_array_equal(tc[k].numpy(), want, err_msg=k)
+        assert tc[k].data_ptr() == block.data_ptr() + 4 * off
+    st = tc["k_struct"]
+    for k in t_unit_fused.TABLE_KEYS:
+        assert getattr(st, k[2:]) == tc[k].data_ptr(), k
+    np.testing.assert_array_equal(np.array(st.ip[:]), cst["k_iparams"])
+    np.testing.assert_array_equal(np.array(st.fp[:], np.float32),
+                                  cst["k_fparams"])
+    assert tc["k_struct_ptr"] == ctypes.addressof(st)
+    assert tc["k_device"] == block.device
+    assert t_unit_fused.out_words(n, 31) == 31 * (2 + 2 * n * n + 8)
+
+
+def fused_select(cost, n_modes):
+    """The kernel's select, in plain PyTorch: per slot, lane l of one warp
+    holds the costs of modes l and l + 32 (+inf past the last mode); the
+    warp's float minimum, then the least mode id whose cost equals it."""
+    b = cost.shape[0]
+    inf = torch.full((b, 64 - n_modes), float("inf"))
+    c = torch.cat([cost[:, :n_modes], inf], dim=1)       # (b, 64)
+    c0, c1 = c[:, :32], c[:, 32:]
+    v = torch.minimum(c0, c1).amin(dim=1, keepdim=True)
+    lanes = torch.arange(32)[None]
+    ids = torch.where(c0 == v, lanes, torch.where(c1 == v, lanes + 32,
+                                                   t_unit_fused.M_PAD))
+    best = ids.amin(dim=1)
+    return cost.gather(1, best[:, None])[:, 0], best
+
+
+@pytest.mark.parametrize("n_modes", [35, 36])
+def test_fused_select_matches_argmin_blocks(n_modes):
+    """Ties (several modes at the minimum, +0 and -0) go to the lowest mode
+    id, as `_argmin_blocks` decides, also beside infinite costs; the cost
+    returned is that mode's own."""
+    rng = np.random.default_rng(n_modes)
+    b = 64
+    cost = rng.integers(0, 6, (b, t_unit_fused.M_PAD)).astype(np.float32)
+    cost[:8] = 3.0
+    cost[8:16, 5] = -0.0
+    cost[8:16, 2] = 0.0
+    cost[16:24, ::2] = np.inf
+    cost[24:32, n_modes:] = -1.0          # past the last mode: never read
+    cost[32:40, 33:] = -2.0 if n_modes == 36 else 7.0
+    cost[:, n_modes:] = np.where(np.arange(b)[:, None] < 24, 99.0,
+                                 cost[:, n_modes:])
+    t = torch.from_numpy(cost)
+    got_v, got_b = fused_select(t, n_modes)
+    # _argmin_blocks' lane layout: (1, M * B), mode-major; modes past the
+    # last carry the plain trial's BIG_COST.
+    lanes = t.clone()
+    lanes[:, n_modes:] = t_unit_fused.BIG_COST
+    z = torch.zeros((1, t_unit_fused.M_PAD * b), dtype=torch.int32)
+    want_v, want_b, _, _, _ = t_unit_fused._argmin_blocks(
+        lanes.T.reshape(1, -1), z, z, z, b)
+    assert torch.equal(got_b.to(torch.int32), want_b)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert (got_b[:8] == 0).all() and (got_b[8:16] <= 2).all()
+
+
+@pytest.mark.parametrize("bad", ["ref_top_dtype", "orig_shape", "mode_bits",
+                                 "rate_rows", "nn_pred", "layout",
+                                 "no_tables"])
+def test_kernel_wrapper_refuses_bad_inputs(bad):
+    """The kernel path checks its inputs with one predicate per call and
+    raises before it builds or launches anything."""
+    n, qp = 8, 32
+    tc = t_unit_fused.consts_from_numpy(consts(n, qp, "port"), device="cpu")
+    rt, rl, og, mb, rr = [torch.from_numpy(x) for x in trial_inputs(n, qp)]
+    nnp = None
+    if bad == "ref_top_dtype":
+        rt = rt.to(torch.int64)
+    elif bad == "orig_shape":
+        og = og[:, :4].contiguous()
+    elif bad == "mode_bits":
+        mb = torch.cat([mb, mb[:, :1]], dim=1)
+    elif bad == "rate_rows":
+        rr = rr.T.contiguous()
+    elif bad == "nn_pred":
+        nnp = og.to(torch.int16)
+    elif bad == "layout":
+        rl = rl.T.contiguous().T
+    else:
+        tc = t_unit_fused.consts_from_numpy(
+            consts(n, qp, "jax"), device="cpu")
+    with pytest.raises(ValueError):
+        t_unit_fused._kernel_trial(tc, rt, rl, og, mb, rr, nnp)
