@@ -63,8 +63,12 @@ printing one line with its seconds:
      there is a library call, the kernel and it timed in turns, kernel,
      library, library, kernel, ...; and the same queued behind a spin of
      the card, so that the events time its work alone), the kernels' own
-     device time (profiler), plain ms, bound ms (for the FC PNN the least
-     over its float32-accurate routes, named in `bound_route`), and the
+     device time (profiler; a session that dropped kernel records is
+     profiled again), plain ms, bound ms (the least over a kernel's routes,
+     named in `bound_route`: for the trial its exact ones, int32 on the
+     CUDA cores or FP64 on the tensor cores, or "f32 operations" where
+     its float32 work takes longer; for the FC PNN its float32-accurate
+     ones), and the
      time of one library call of the same function where there is one
      (library ms): a float64 `torch.bmm` for the integer merger, a float32
      `torch.matmul` chain (TF32 off) for the FC PNN, a float32 `torch.bmm`
@@ -143,10 +147,9 @@ TF32_OPS = 495e12
 BF16_OPS = 989e12
 GRID_NAMES = ("m8", "q8", "s8", "m4", "q4", "m16", "q16", "s16", "m32",
               "q32", "s32")
-# The kernels of one trial call, by unit size (profiler names).
+# The kernel of one trial call, by unit size (profiler names).
 TRIAL_KERNELS = {4: ("trial_small_kernel",), 8: ("trial_small_kernel",),
-                 16: ("trial_modes_kernel", "select_kernel"),
-                 32: ("trial_modes_kernel", "select_kernel")}
+                 16: ("trial_large_kernel",), 32: ("trial_large_kernel",)}
 
 
 def say(msg):
@@ -353,10 +356,11 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()[0]
-        int_ops = card_int32_rate()
+        int_ops, f64_ops = card_rates()
         say(f"device: {kind}; torch {torch.__version__} cuda "
             f"{torch.version.cuda}; count {torch.cuda.device_count()}")
-        say(f"nvidia-smi: {smi}; int32 rate {int_ops / 1e12:.2f} T/s")
+        say(f"nvidia-smi: {smi}; int32 rate {int_ops / 1e12:.2f} T/s, FP64 "
+            f"tensor cores {f64_ops / 1e12:.2f} T/s")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -768,12 +772,14 @@ def main():
             call = lambda impl: unit_fused.trial_apply(tc, *args, impl=impl)
             got, want = call("kernel"), call("plain")
             assert_equal(got, want, f"phase-4 inputs n={n}")
-            bound_ms, bound_by = trial_bound_ms(tc, args, int_ops)
+            bound_ms, bound_by, route = trial_bound_ms(tc, args, int_ops,
+                                                       f64_ops)
             rows.append(kernel_row(
                 f"unit_trial_n{n}", SOURCE, REPLACES[n], launches[n],
                 max_abs_err(got, want), lambda: call("kernel"),
                 lambda: call("plain"), bound_ms, bound_by, None,
                 TRIAL_KERNELS[n]))
+            rows[-1]["bound_route"] = route
         for n, m in NN_MAPS.items():
             x, w, bb = captured[("merger", m)]
             call = lambda impl: merger_int.merger_int_forward(x, w, bb,
@@ -1084,25 +1090,32 @@ def tensor_core_sass(lib_path):
             f" HMMA instructions (cuobjdump -sass)")
 
 
-def kernel_device_ms(fn, keys, reps=20):
+def kernel_device_ms(fn, keys, reps=20, tries=3):
     """Device time per call of the kernels whose names contain one of
-    `keys`, from the profiler's CUDA activity (None if the profiler
-    records no device time)."""
+    `keys`, from the profiler's CUDA activity.  The profiler drops a
+    session's kernel records now and then (all of them, or some), so a
+    session counts only if every matching kernel has a whole number of
+    records per call; otherwise it is profiled again, up to `tries` times
+    (None if no session had them all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if any(k in e.key for k in keys):
-            us += getattr(e, "device_time_total",
-                          getattr(e, "cuda_time_total", 0.0))
-    return us / reps / 1e3 if us > 0 else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if any(k in e.key for k in keys)]
+        if found and all(e.count % reps == 0 for e in found):
+            us = sum(getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+                     for e in found)
+            if us > 0:
+                return us / reps / 1e3
+    return None
 
 
 def device_activity(fn, reps=5):
@@ -1153,10 +1166,11 @@ def device_breakdown(fn, n_top=4):
                             for name, (us, k) in top)
 
 
-def card_int32_rate():
-    """int32 operations per second of card 0: 64 int32 lanes per SM, a
-    multiply-add counted as two, at the card's max SM clock
-    (`nvidia-smi --query-gpu=clocks.max.sm`)."""
+def card_rates():
+    """(int32, FP64 tensor-core) operations per second of card 0 at its max
+    SM clock (`nvidia-smi --query-gpu=clocks.max.sm`), a multiply-add
+    counted as two: 64 int32 lanes per SM; 256 FP64 tensor-core
+    operations a clock per SM."""
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1164,17 +1178,23 @@ def card_int32_rate():
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    return 2 * 64 * sms * float(mhz) * 1e6
+    clock = sms * float(mhz) * 1e6
+    return 2 * 64 * clock, 256 * clock
 
 
-def trial_bound_ms(tc, args, int_ops):
+def trial_bound_ms(tc, args, int_ops, f64_ops):
     """The least time the card could take for one trial call: the larger
     of (bytes of inputs and tables read once + outputs written once) over
     the HBM rate, and the operations' time.  Operations per (slot, mode):
     the four integer transform passes, 2 n^3 multiply-adds each counted as
-    two, at the card's int32 rate; about 72 per pixel for prediction,
-    RDOQ, rate, sign hiding and reconstruction at the float32 rate.  The
-    two kinds issue to separate units, so the larger time bounds."""
+    two, by the fastest exact route (int32 on the CUDA cores, or FP64 on
+    the tensor cores: every product and partial sum below 2^53); about 72
+    per pixel for prediction, RDOQ, rate, sign hiding and reconstruction at
+    the float32 rate.  The two kinds issue to separate units, so the larger
+    time bounds.  Only the tables the kernel of size n reads count.
+    Returns (ms, bytes or operations, the route of the term that sets the
+    bound: the transforms' route, or "f32 operations" where the float32
+    work is the larger)."""
     from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
         import unit_fused
 
@@ -1183,13 +1203,19 @@ def trial_bound_ms(tc, args, int_ops):
     n_modes = tc["n_modes"]
     read = sum(a.numel() * a.element_size() for a in args)
     read += sum(tc[k].numel() * tc[k].element_size() for k in
-                unit_fused.TABLE_KEYS + unit_fused.PARAM_KEYS)
+                unit_fused.table_keys(n) + unit_fused.PARAM_KEYS)
     written = b * 4 * 2 + b * nn * 4 * 2 + b * 8 * 4
     t_bytes = (read + written) / HBM_BPS
-    t_ops = max(b * n_modes * 4 * 2 * n ** 3 / int_ops,
-                b * n_modes * 72 * nn / F32_OPS)
+    transform_ops = b * n_modes * 4 * 2 * n ** 3
+    routes = {"int32": transform_ops / int_ops,
+              "f64 tensor cores": transform_ops / f64_ops}
+    route = min(routes, key=routes.get)
+    t_f32 = b * n_modes * 72 * nn / F32_OPS
+    if t_f32 > routes[route]:
+        route = "f32 operations"
+    t_ops = max(routes.get(route, 0.0), t_f32)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", route)
 
 
 def merger_bound_ms(x, w, b, int_ops):

@@ -16,7 +16,8 @@ instructions as inline PTX and gets `cuTensorMapEncodeTiled` through the
 runtime's driver entry point, so nothing links against libcuda.
 
   unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`): one
-                  launch per call at n = 4 and 8, modes on warp lanes
+                  launch per call, modes on warp lanes, the n = 16 / 32
+                  transforms on the FP64 tensor cores
   merger_int.cu   the PNN's integer merger (`merger_int.merger_int_forward`):
                   weights laid out (P, M, O) once, vector loads
   fc_forward.cu   the float FC PNN's layers (`fc_forward.fc_forward`):

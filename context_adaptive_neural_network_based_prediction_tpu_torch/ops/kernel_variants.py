@@ -21,18 +21,23 @@ card's time, no host cost).  Sections:
   merger-int the integer merger with other maps per block and warps per
              block, at the codec's M = 32 ... 256 and N = 31, against
              float64 `torch.bmm` (every variant checked exact)
-  trial      the unit trial at n = 4 and 8 (31 slots): clusters of 4, 2
-             and 1 blocks a slot, and the two-launch design (a block per
-             slot and mode, then a select kernel), every one checked exact,
-             queued and on the profiler's clock
+  trial      the unit trial at 31 slots, every variant checked exact,
+             timed queued and on the profiler's clock, in turns: at n = 4
+             and 8 clusters of 4, 2 and 1 blocks a slot; at n = 16 and 32
+             the shapes of `TRIAL_LARGE_VARIANTS` (cluster size, warps a
+             mode, threads and blocks an SM); at every n the two-launch
+             design (a block per slot and mode, then a select kernel)
   trial-probes  the same, with probes of the select's cost: two
              release/acquire cluster barriers more, and no select (timing
              only: wrong results)
-  trial-stress  many back-to-back trial calls at n = 4 and 8 (31 slots)
-             through the kernel's entry point, the outputs held against
-             the first call's bits every few thousand calls: the final
-             design, then the select as first written (a launch error ends
-             the process, so that one comes last)
+  trial-stress  many back-to-back trial calls at n = 4, 8, 16 and 32 (31
+             slots) through the kernel's entry point, the outputs held
+             against the first call's bits every few thousand calls: the
+             final design, then (n = 4 and 8) the select as first written
+             (a launch error ends the process, so that one comes last)
+  trial-clusters  how many clusters of each size the card holds at once
+             (`cudaOccupancyMaxActiveClusters`) for the n = 16 / 32
+             kernel's blocks as built (31 slots need 31 for one wave)
   trial-host the trial wrapper's host-inclusive us per call at n = 4 and
              8, timed as `chip_smoke.py` phase 8 times it but in turns
              (n = 4, 8, 8, 4), in several rounds, beside its host us
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -143,20 +149,73 @@ TRIAL_VARIANTS = {
     "two launches (slot x mode blocks, select kernel)": [
         (_CASE_4, "launch_modes<4>("), (_CASE_8, "launch_modes<8>(")],
 }
-_WAIT = "    if (tid < 32) mbar_wait0(&costs_in);"
+_CASE_16 = "e = launch_large<16, WARPS_16, CLUSTER_16>("
+_CASE_32 = "e = launch_large<32, WARPS_32, CLUSTER_32>("
+
+
+def large_knobs():
+    """The n = 16 / 32 kernel's shape constants as `csrc/unit_trial.cu`
+    sets them: {name: value}."""
+    with open(os.path.join(_cuda_build.CSRC, "unit_trial.cu")) as f:
+        text = f.read()
+    return {k: int(v) for k, v in re.findall(
+        r"^constexpr int ((?:CLUSTER|WARPS|MAX_THREADS|MIN_BLOCKS)_(?:16|32))"
+        r" = (\d+);$", text, flags=re.M)}
+
+
+_KNOBS = large_knobs()
+
+
+def _large(**knobs):
+    """Replacements setting the n = 16 / 32 kernel's knobs."""
+    return [(f"constexpr int {k} = {_KNOBS[k]};",
+             f"constexpr int {k} = {v};") for k, v in knobs.items()
+            if v != _KNOBS[k]]
+
+
+# n = 16 and 32, the final design first: cluster size (CL), warps a mode
+# (W: pixels a thread n^2 / 32 W), threads a block, blocks an SM.  How
+# many clusters of a size fit at once decides whether 31 slots run in one
+# wave (`trial-clusters`).
+TRIAL_LARGE_VARIANTS = {
+    "n = 16: W 2, CL 9, 2 blocks an SM; n = 32: W 8, CL 3, 768 threads":
+        [],
+    "CL 6 at n = 16": _large(CLUSTER_16=6),
+    "CL 12 at n = 16, 1 block an SM": _large(CLUSTER_16=12, MIN_BLOCKS_16=1),
+    "8 pixels a thread (W 1 / 4), CL 3": _large(
+        WARPS_16=1, CLUSTER_16=3, MIN_BLOCKS_16=1, WARPS_32=4,
+        MAX_THREADS_32=384),
+    "8 pixels a thread, CL 4 (two waves: 30 clusters fit)": _large(
+        WARPS_16=1, CLUSTER_16=4, MIN_BLOCKS_16=1, WARPS_32=4, CLUSTER_32=4,
+        MAX_THREADS_32=384),
+    "8 pixels a thread, CL 6, 256 threads and 2 blocks an SM at n = 32":
+        _large(WARPS_16=1, CLUSTER_16=6, MIN_BLOCKS_16=1, WARPS_32=4,
+               CLUSTER_32=6, MAX_THREADS_32=256, MIN_BLOCKS_32=2),
+    "2 pixels a thread (W 4 / 16), 1024 threads at n = 32": _large(
+        WARPS_16=4, CLUSTER_16=12, MIN_BLOCKS_16=1, WARPS_32=16,
+        MAX_THREADS_32=1024),
+    "1024 threads at n = 32": _large(MAX_THREADS_32=1024),
+    "CL 12 at n = 32 (3 modes a block)": _large(CLUSTER_32=12),
+    "a warp a mode at n = 32 (CL 6)": _large(WARPS_32=1, CLUSTER_32=6,
+                                             MAX_THREADS_32=384),
+    "two launches at n >= 16 (the first design)": [
+        (_CASE_16, "launch_modes<16>("), (_CASE_32, "launch_modes<32>(")],
+}
+_WAIT = "    if (tid < 32) mbar_wait0(costs_in);"
 _FENCED = [(_WAIT, _WAIT + 2 * (
     '\n    asm volatile("barrier.cluster.arrive.aligned;\\n"'
     '\n                 "barrier.cluster.wait.aligned;" ::: "memory");'))]
-_NO_SELECT = [("    if (tid == 0) s_best = id < M_PAD ? id : 0;",
-               "    if (tid == 0) s_best = 0;")]
+_NO_SELECT = [("    if (tid == 0) *s_best = id < M_PAD ? id : 0;",
+               "    if (tid == 0) *s_best = 0;")]
 # The select as first written, without the cluster barrier at the end.
 # It races (a block may exit with its pushes in flight): it gave the right
 # bits until it hung once (PERF.md), so it is a probe.
 _UNSAFE = [("    cluster_arrive_relaxed();\n    cluster_wait();\n  }\n"
-            "  const int bi = s_best;", "  }\n  const int bi = s_best;")]
+            "  const int bi = *s_best;", "  }\n  const int bi = *s_best;")]
 # What the select costs: two release/acquire cluster barriers more (as a
 # select over distributed shared memory needs), and no select at all
-# (timing only: wrong results).
+# (timing only: wrong results).  The select is one helper of both kernels,
+# so a probe changes n = 16 / 32 too; it is timed at n = 4 and 8.
 TRIAL_PROBES = {
     "clusters of 4, select as first written (unsafe)": _UNSAFE,
     "clusters of 4, two cluster barriers more": _FENCED,
@@ -181,14 +240,52 @@ extern "C" int empty_launch(int smem, int blocks, int threads,
   return (int)cudaGetLastError();
 }
 """
+# The n = 16 / 32 trial kernel's blocks as built: registers, shared memory
+# and how many clusters of `cluster` blocks fit on the card at once.
+CLUSTER_SOURCE = r"""
+#include "unit_trial.cu"
+template <int N, int W, int CL>
+int clusters(int cluster, int* out) {
+  using K = Large<N, W, CL>;
+  auto kern = trial_large_kernel<N, W, CL>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(31 * cluster);
+  cfg.blockDim = dim3(K::THREADS);
+  cfg.dynamicSmemBytes = K::SMEM;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  out[0] = K::THREADS;
+  out[1] = fa.numRegs;
+  out[2] = K::SMEM;
+  return (int)cudaOccupancyMaxActiveClusters(&out[3], kern, &cfg);
+}
+extern "C" int trial_clusters(int n, int cluster, int* out) {
+  return n == 16 ? clusters<16, WARPS_16, CLUSTER_16>(cluster, out)
+                 : clusters<32, WARPS_32, CLUSTER_32>(cluster, out);
+}
+"""
 MERGER_SHAPES = ((32, 1024, torch.float32), (64, 1024, torch.float32),
                  (128, 1024, torch.float32), (256, 1024, torch.float32),
                  (128, 256, torch.bfloat16), (128, 2048, torch.bfloat16))
 
 
 def build_variants(source, variants, out_dir):
-    """{name: ctypes library} of `source` with each variant's
-    replacements, built in parallel."""
+    """{name: (ctypes library, lines ptxas marks as serialized, the
+    compiler's output)} of `source` with each variant's replacements,
+    built in parallel."""
     with open(os.path.join(_cuda_build.CSRC, source)) as f:
         text = f.read()
     libs, errors = {}, []
@@ -213,7 +310,8 @@ def build_variants(source, variants, out_dir):
                 raise RuntimeError(f"{name}: {proc.stderr[-2000:]}")
             serial = sum("serialized" in line for line in
                          (proc.stdout + proc.stderr).splitlines())
-            libs[name] = (_cuda_build._bind(stem, lib), serial)
+            libs[name] = (_cuda_build._bind(stem, lib), serial,
+                          proc.stdout + proc.stderr)
         except Exception as e:  # re-raised below, after every build
             errors.append(e)
 
@@ -310,7 +408,7 @@ def fc_probes(dev, out_dir):
         out = torch.empty((n, d), device=dev)
         part = torch.empty((1, n, d), device=dev)
         names, fns = [], []
-        for name, (lib, serial) in libs.items():
+        for name, (lib, serial, _) in libs.items():
             for bn in ((96, 192) if "warpgroups" in name else (192,)):
                 names.append(f"{name}, BN {bn}"
                              + (" (serialized by ptxas)" if serial else ""))
@@ -334,7 +432,7 @@ def merger_variants(dev, out_dir):
         out = torch.empty((n, 16, m), device=dev)
         want = merger.merger_plain(x, w, b, True)
         fns = []
-        for name, (lib, _) in libs.items():
+        for name, (lib, _, _) in libs.items():
             args = (n, 80, 16, m, int(dtype == torch.bfloat16), 1,
                     x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
                     stream)
@@ -388,7 +486,7 @@ def merger_int_variants(dev, out_dir):
         want = merger_int.merger_plain(x, w, b)
         out = torch.empty((m, n, 16), dtype=torch.int32, device=dev)
         fns = []
-        for name, (lib, _) in libs.items():
+        for name, (lib, _, _) in libs.items():
             args = (n, 80, m, x.data_ptr(), wp.data_ptr(), b.data_ptr(),
                     out.data_ptr(), stream)
             out.zero_()
@@ -435,11 +533,16 @@ def _trial_case(n, b, dev, qp=32):
 
 
 def trial_variants(dev, out_dir, probes=False):
-    libs = build_variants("unit_trial.cu",
-                          {**TRIAL_VARIANTS, **TRIAL_PROBES} if probes
-                          else TRIAL_VARIANTS, out_dir)
+    small = {**TRIAL_VARIANTS, **TRIAL_PROBES} if probes else TRIAL_VARIANTS
+    libs = build_variants("unit_trial.cu", {**small, **TRIAL_LARGE_VARIANTS},
+                          out_dir)
+    for name in TRIAL_LARGE_VARIANTS:
+        for line in libs[name][2].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}",
+                      flush=True)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    for n in (4, 8):
+    for n in (4, 8, 16, 32):
         b = 31
         tc, args = _trial_case(n, b, dev)
         want = unit_fused.trial_apply(tc, *args, impl="plain")
@@ -448,8 +551,10 @@ def trial_variants(dev, out_dir, probes=False):
         out = torch.empty(b * (2 + 2 * nn + 8)
                           + b * unit_fused.M_PAD * (1 + 2 * nn + 8),
                           dtype=torch.int32, device=dev)
+        names = list(small if n <= 8 else TRIAL_LARGE_VARIANTS)
         fns = []
-        for name, (lib, _) in libs.items():
+        for name in names:
+            lib = libs[name][0]
             cargs = (n, b, *(a.data_ptr() for a in args), None,
                      tc["k_struct_ptr"], out.data_ptr(), stream)
             if lib.unit_trial(*cargs):
@@ -467,7 +572,7 @@ def trial_variants(dev, out_dir, probes=False):
         dev_us = [device_us(f, ("trial", "select")) for f in fns]
         print(f"unit_trial n={n} b={b}: " + "; ".join(
             f"{name} {t:.2f} us queued, {d} us on the card"
-            for name, t, d in zip(libs, us, dev_us)), flush=True)
+            for name, t, d in zip(names, us, dev_us)), flush=True)
 
 
 def trial_stress(dev, out_dir, calls=200_000, check_every=5_000):
@@ -477,15 +582,25 @@ def trial_stress(dev, out_dir, calls=200_000, check_every=5_000):
                                    {unsafe: TRIAL_PROBES[unsafe]},
                                    out_dir)[unsafe][0]}
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    cases = {n: _trial_case(n, 31, dev) for n in (4, 8)}
+    cases = {n: _trial_case(n, 31, dev) for n in (4, 8, 16, 32)}
     for name, lib in libs.items():
         for n, (tc, args) in cases.items():
+            if name == unsafe and n > 8:
+                continue
             out = torch.empty(unit_fused.out_words(n, 31), dtype=torch.int32,
                               device=dev)
             cargs = (n, 31, *(a.data_ptr() for a in args), None,
                      tc["k_struct_ptr"], out.data_ptr(), stream)
-            lib.unit_trial(*cargs)
+            if lib.unit_trial(*cargs):
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
             ref = out.clone()
+            want = unit_fused.trial_apply(tc, *args, impl="plain")
+            got = unit_fused.split_outputs(ref, n, 31)
+            if not all(torch.equal(x.reshape(-1).view(torch.int32),
+                                   y.reshape(-1).view(torch.int32))
+                       for x, y in zip(got, want)):
+                raise AssertionError(f"{name} n={n}: differs from plain")
             t0 = time.perf_counter()
             for i in range(1, calls + 1):
                 if lib.unit_trial(*cargs):
@@ -534,6 +649,38 @@ def trial_host_turns(dev, rounds=4, reps=50):
         print(f"trial host-inclusive round {r}: n=4 {ms[0]:.1f} / {ms[3]:.1f}"
               f" us, n=8 {ms[1]:.1f} / {ms[2]:.1f} us; host n=4 "
               f"{host_us(4):.1f} us, n=8 {host_us(8):.1f} us", flush=True)
+
+
+def trial_clusters(out_dir, sizes=(2, 3, 4, 6, 8, 9, 12)):
+    """Print, for the n = 16 / 32 trial kernel as built, its threads,
+    registers and shared memory a block and the clusters of each size the
+    card holds at once."""
+    import ctypes
+
+    path = os.path.join(out_dir, "trial_clusters.cu")
+    with open(path, "w") as f:
+        f.write(CLUSTER_SOURCE)
+    lib_path = path[:-3] + ".so"
+    proc = subprocess.run(
+        [_cuda_build.nvcc(), *_cuda_build.NVCC_FLAGS,
+         *_cuda_build.SOURCE_FLAGS["unit_trial"], "-I", _cuda_build.CSRC,
+         "-o", lib_path, path], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"trial_clusters: {proc.stderr[-2000:]}")
+    lib = ctypes.CDLL(lib_path)
+    lib.trial_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    lib.trial_clusters.restype = ctypes.c_int
+    for n in (16, 32):
+        found = []
+        for c in sizes:
+            out = (ctypes.c_int * 4)()
+            if lib.trial_clusters(n, c, out):
+                raise RuntimeError(f"trial_clusters n={n} cluster {c} failed")
+            found.append(f"{c}: {out[3]}")
+        print(f"trial n={n}: {out[0]} threads, {out[1]} registers, {out[2]} "
+              f"bytes of shared memory a block; clusters at once by size "
+              + ", ".join(found) + " (31 slots)", flush=True)
 
 
 def build_empty(out_dir):
@@ -676,6 +823,7 @@ def main(argv=None):
              "trial": lambda: trial_variants(dev, out_dir),
              "trial-probes": lambda: trial_variants(dev, out_dir, True),
              "trial-host": lambda: trial_host_turns(dev),
+             "trial-clusters": lambda: trial_clusters(out_dir),
              "trial-stress": lambda: trial_stress(dev, out_dir),
              "empty": lambda: print_empty(dev, out_dir),
              "host": lambda: host_cost(dev)}[section]()

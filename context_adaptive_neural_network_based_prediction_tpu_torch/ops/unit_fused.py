@@ -25,7 +25,7 @@ mode (the counts keep the JAX package's cbf=0 sig-bin bias).
   the plain version on the card (for comparing the two).  Per call the
   wrapper checks its inputs with one predicate, makes one output
   allocation and passes the table set as one pointer (`TableSet`, built by
-  `consts_from_numpy`); at n = 4 and 8 a call is one launch.
+  `consts_from_numpy`); a call is one launch at every n.
 
 Under the NN policies a PNN prediction `nn_pred` (b, n, n) takes the place
 of mode 18's prediction (`nn_policy="sub18"`, substitution) or fills the
@@ -327,11 +327,23 @@ def _kernel_tables(n, n_modes, c, compact, lastpb, ipp, SB, lam, qscale,
     the (n, n) matrices directly, so it needs none of the (n^2, n^2)
     Kronecker or prediction matrices.  Rate tables are (rows, n^2) in
     raster order, one row per mode, or one shared row when the scan is
-    mode-independent (n > 8)."""
+    mode-independent: always at n > 8 (HEVC's diagonal scan), which the
+    kernel's n = 16 / 32 design relies on."""
     nn = n * n
+    assert 4 * n + 2 <= 256, "angular indices must fit 8 bits"
     n_modes_t = np.asarray(c["sig0"]).shape[0]
-    rows = [0] if compact else [min(m, n_modes_t - 1) for m in range(M_PAD)]
     inv_sg = np.asarray(c["inv_sg"])
+    if n > 8:
+        for key in ("inv_sg", "sig0", "sig1"):
+            t = np.asarray(c[key])
+            assert np.all(t == t[:1]), f"{key}: mode-dependent at n = {n}"
+        # The n = 16 / 32 kernel gives a half-warp the 16 scan positions
+        # of one coefficient group: they must be one 4x4 block.
+        sg = np.argsort(inv_sg[0]).reshape(-1, 16)
+        assert np.all((sg // n) >> 2 == (sg[:, :1] // n) >> 2) and np.all(
+            (sg % n) >> 2 == (sg[:, :1] % n) >> 2), "scan splits a group"
+        compact = True
+    rows = [0] if compact else [min(m, n_modes_t - 1) for m in range(M_PAD)]
     scan = np.stack([inv_sg[mt] for mt in rows]).astype(np.int32)
     sig0 = np.stack([np.asarray(c["sig0"], np.float32)[mt][inv_sg[mt]]
                      for mt in rows])
@@ -341,7 +353,17 @@ def _kernel_tables(n, n_modes, c, compact, lastpb, ipp, SB, lam, qscale,
     sbi = {k: int(round(SB[k] * 256.0)) for k in
            ("g1_0", "g1_1", "g2_0", "g2_1", "csb0", "csb1", "cbf1")}
     f32 = lambda v: float(np.float32(v))
+    large = {}
+    if n > 8:
+        large = dict(
+            k_iscan=np.argsort(scan, axis=1).astype(np.int32),
+            # frac | g0 << 8 | g1 << 16: one word a pixel (indices below
+            # 256).
+            k_ang=(np.asarray(c["frac"], np.int32)
+                   | np.asarray(c["g0"], np.int32) << 8
+                   | np.asarray(c["g1"], np.int32) << 16).reshape(33, nn))
     return dict(
+        **large,
         k_g0=np.asarray(c["g0"], np.int32).reshape(33, nn),
         k_g1=np.asarray(c["g1"], np.int32).reshape(33, nn),
         k_frac=np.asarray(c["frac"], np.int32).reshape(33, nn),
@@ -369,9 +391,13 @@ def _kernel_tables(n, n_modes, c, compact, lastpb, ipp, SB, lam, qscale,
 # --------------------------------------------------------------- tensors --
 
 # The kernel's tables, in the order of the pointers of its `Tables` struct
-# (csrc/unit_trial.cu), then its integer and float parameters.
+# (csrc/unit_trial.cu), then its integer and float parameters.  The last
+# two (`LARGE_TABLE_KEYS`) only the n = 16 / 32 kernel reads: they exist
+# at n > 8 only, and their pointers are null otherwise.
 TABLE_KEYS = ("k_g0", "k_g1", "k_frac", "k_use_filt", "k_tf", "k_ti",
-              "k_scan", "k_sig0", "k_sig1", "k_sig0i", "k_sig1i", "k_lastpb")
+              "k_scan", "k_sig0", "k_sig1", "k_sig0i", "k_sig1i", "k_lastpb",
+              "k_iscan", "k_ang")
+LARGE_TABLE_KEYS = ("k_iscan", "k_ang")
 PARAM_KEYS = ("k_iparams", "k_fparams")
 _ALIGN = 4          # table offsets in 4-byte words: 16-byte aligned
 
@@ -384,12 +410,18 @@ class TableSet(ctypes.Structure):
                 + [("ip", ctypes.c_int * 16), ("fp", ctypes.c_float * 8)])
 
 
+def table_keys(n):
+    """The kernel tables of unit size n, in `TABLE_KEYS` order."""
+    return tuple(k for k in TABLE_KEYS
+                 if n > 8 or k not in LARGE_TABLE_KEYS)
+
+
 def pack_tables(cst: dict):
     """The kernel tables of a `build_consts` dict in one int32 block: (block
     (words,) int32 numpy, {key: (offset in words, shape, dtype)}); float
     tables are stored as their bits."""
     parts, layout, off = [], {}, 0
-    for k in TABLE_KEYS + PARAM_KEYS:
+    for k in table_keys(cst["n"]) + PARAM_KEYS:
         a = np.ascontiguousarray(cst[k])
         words = a.reshape(-1).view(np.int32)
         pad = -len(words) % _ALIGN
@@ -443,7 +475,8 @@ def consts_from_numpy(cst: dict, device="cuda") -> dict:
         out.update(_table_views(block, layout))
         base = block.data_ptr()
         struct = TableSet(
-            *(base + 4 * layout[k][0] for k in TABLE_KEYS),
+            *(base + 4 * layout[k][0] if k in layout else None
+              for k in TABLE_KEYS),
             (ctypes.c_int * 16)(*np.asarray(cst["k_iparams"]).tolist()),
             (ctypes.c_float * 8)(*np.asarray(cst["k_fparams"]).tolist()))
         out.update(k_block=block, k_layout=layout, k_struct=struct,
@@ -560,17 +593,7 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     orig_rep = orig_p.repeat(1, M)                        # (nn, M*B) i32
     resi = orig_rep.to(f32) - preds
 
-    # ---- forward transform, exact: split matrices keep every partial
-    # product float32-exact; recombination and shifts in int32 ----
-    def tdot(kh, kl, x):
-        return (256 * (tc[kh] @ x).to(i32) + (tc[kl] @ x).to(i32))
-
-    a_i = (tdot("f1h", "f1l", resi) + (1 << (tc["shift1"] - 1))) \
-        >> tc["shift1"]
-    hs = tdot("f2h", "f2l", (a_i >> 8).to(f32))
-    ls = tdot("f2h", "f2l", (a_i & 255).to(f32))
-    coeff = ((hs + ((ls + (1 << (tc["shift2"] - 1))) >> 8))
-             >> (tc["shift2"] - 8)).to(f32)
+    coeff = _forward_plain(tc, resi)
 
     # ---- RDOQ-lite (raster domain) ----
     qstep = float(2.0 ** tc["qbits"])
@@ -709,13 +732,7 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     else:
         deq = (q * tc["iq_scale"]) << (-iq)
     deq = deq.clamp(-32768, 32767)
-    e1 = (256 * (tc["i1"] @ (deq >> 8).to(f32)).to(i32)
-          + (tc["i1"] @ (deq & 255).to(f32)).to(i32))
-    e1 = ((e1 + 64) >> 7).clamp(-32768, 32767)
-    r2 = (256 * (tc["i2"] @ (e1 >> 8).to(f32)).to(i32)
-          + (tc["i2"] @ (e1 & 255).to(f32)).to(i32))
-    r2 = ((r2 + (1 << 11)) >> 12).clamp(-32768, 32767)
-    rec = (preds.to(i32) + r2).clamp(0, 255)
+    rec = (preds.to(i32) + _inverse_plain(tc, deq)).clamp(0, 255)
 
     sse = _i32_sum(sq(rec - orig_rep), 0)
     cost = (sse.to(f32) + LAM * (tu_bits + mode_row)
@@ -734,6 +751,37 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
         torch.ones_like(dsig0_i),
     ], dim=0)
     return cost, rec, q, cnt
+
+
+def _forward_plain(tc, resi):
+    """The exact forward transform of residuals resi (n^2, L) f32 in the
+    CG-grouped raster order: coefficients (n^2, L) f32.  Split matrices
+    keep every partial product float32-exact; recombination and shifts in
+    int32 (the JAX package's formulation)."""
+    i32, f32 = torch.int32, torch.float32
+
+    def tdot(kh, kl, x):
+        return (256 * (tc[kh] @ x).to(i32) + (tc[kl] @ x).to(i32))
+
+    a_i = (tdot("f1h", "f1l", resi) + (1 << (tc["shift1"] - 1))) \
+        >> tc["shift1"]
+    hs = tdot("f2h", "f2l", (a_i >> 8).to(f32))
+    ls = tdot("f2h", "f2l", (a_i & 255).to(f32))
+    return ((hs + ((ls + (1 << (tc["shift2"] - 1))) >> 8))
+            >> (tc["shift2"] - 8)).to(f32)
+
+
+def _inverse_plain(tc, deq):
+    """The inverse transform of dequantised levels deq (n^2, L) i32 (within
+    16 bits), CG-grouped raster order: the reconstruction's residual
+    (n^2, L) i32, each pass rounded and clipped to 16 bits."""
+    i32, f32 = torch.int32, torch.float32
+    e1 = (256 * (tc["i1"] @ (deq >> 8).to(f32)).to(i32)
+          + (tc["i1"] @ (deq & 255).to(f32)).to(i32))
+    e1 = ((e1 + 64) >> 7).clamp(-32768, 32767)
+    r2 = (256 * (tc["i2"] @ (e1 >> 8).to(f32)).to(i32)
+          + (tc["i2"] @ (e1 & 255).to(f32)).to(i32))
+    return ((r2 + (1 << 11)) >> 12).clamp(-32768, 32767)
 
 
 def _argmin_blocks(cost, rec, q, cnt, B):
@@ -803,12 +851,9 @@ def _ok(t, shape, dtype, index):
 
 
 def out_words(n, b):
-    """int32 words of one kernel call's output buffer: cost, best, rec, q,
-    counts, and at n = 16 and 32 the per-mode scratch of its select pass
-    (layout in csrc/unit_trial.cu)."""
-    nn = n * n
-    return b * (2 + 2 * nn + 8) + (b * M_PAD * (1 + 2 * nn + 8)
-                                   if n >= 16 else 0)
+    """int32 words of one kernel call's output buffer: cost, best, rec, q
+    and counts (layout in csrc/unit_trial.cu)."""
+    return b * (2 + 2 * n * n + 8)
 
 
 def _kernel_trial(tc, ref_top, ref_left, orig, mode_bits, rate_rows,
@@ -858,10 +903,8 @@ def split_outputs(out, n, b):
     """(cost (b,) f32, best (b,), rec (b, n, n), q (b, n, n), counts (b, 8))
     as views of a kernel call's output buffer."""
     nn = n * n
-    sizes = (b, b, b * nn, b * nn, b * 8)
-    if n >= 16:
-        sizes += (out.numel() - sum(sizes),)
-    cost, best, rec, q, cnt = out.split_with_sizes(sizes)[:5]
+    cost, best, rec, q, cnt = out.split_with_sizes(
+        (b, b, b * nn, b * nn, b * 8))
     return (cost.view(torch.float32), best, rec.view(b, n, n),
             q.view(b, n, n), cnt.view(b, 8))
 

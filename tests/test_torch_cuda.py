@@ -3,7 +3,7 @@
 They hold the CUDA kernels against their plain PyTorch versions on the
 card (exactly): the unit trial, also with a PNN prediction under the
 substitution (`sub18`) and switch (`append`) policies, the one-launch
-trial of n = 4 and 8 at 1 to 31 slots (with the launches the profiler
+trial at every n at 1 to 31 slots (with the launches the profiler
 sees per call), and the PNN's integer merger at every map count of the
 codec, with random inputs and inputs at the frozen models' caps, and
 after an in-place change of its weights.  The kernel path's encodes of the small
@@ -195,7 +195,7 @@ def test_kernel_matches_plain_with_nn_pred(dev, n, policy):
 def small_trial_case(dev, n, b, qp, policy):
     """Table set, inputs (b slots: the last ones the worst-case residuals
     of `trial_inputs`, nonzero rate rows in odd slots of the 4-slot case)
-    and a PNN prediction for the fused n = 4 / 8 trial."""
+    and a PNN prediction for the one-launch trial."""
     n_modes = 36 if policy == "append" else 35
     c = wavefront2._unit_consts(n, qp, n_modes)
     cst = unit_fused.build_consts(
@@ -213,16 +213,16 @@ def small_trial_case(dev, n, b, qp, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
 @pytest.mark.parametrize("b", [1, 2, 17, 31])
 @pytest.mark.parametrize("qp", [22, 32, 37])
 @pytest.mark.parametrize("policy", [None, "sub18", "append"])
 def test_fused_trial_edges(dev, n, b, qp, policy):
-    """The one-launch trial at n = 4 and 8 at the edges of its design:
-    1 to 31 blocks, half-warp and warp modes, the modes past the last
-    (35 modes: the 36th lane group repeats one), with and without a PNN
-    prediction and rate rows (None: zero rows), equal to the plain trial
-    bit for bit; each call one launch; two calls the same bits."""
+    """The one-launch trial at the edges of its design: 1 to 31 slots
+    (clusters), half-warp, warp and warpgroup modes, the modes past the
+    last (35 modes: the 36th mode slot repeats one), with and without a
+    PNN prediction and rate rows (None: zero rows), equal to the plain
+    trial bit for bit; each call one launch; two calls the same bits."""
     tc, (rt, rl, og, mb, rr, nnp) = small_trial_case(dev, n, b, qp, policy)
     for pred in ([None, nnp] if policy else [None]):
         for rows in (rr, None):
@@ -245,26 +245,43 @@ def test_fused_trial_edges(dev, n, b, qp, policy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
 def test_trial_launches_per_call(dev, n):
-    """What the card runs for one trial call (profiler): one kernel at n =
-    4 and 8, the per-mode kernel and the select kernel at 16 and 32."""
+    """What the card runs for one trial call (profiler): one kernel at
+    every n, all of a session's calls counted in that session.  A second
+    witness that cannot drop records: each call of a session has inputs
+    no earlier call had and keeps its outputs, which must equal the plain
+    trial's, so every call ran its kernel (a skipped launch would leave a
+    buffer that nothing wrote these outputs to).  The profiler drops a
+    session's kernel records now and then (0 of 4 seen, the calls' outputs
+    right), so a session short of records, whose every call that witness
+    shows ran, is profiled again with new inputs, up to 3 sessions; no
+    session may show another kernel or more records than calls."""
     from torch.profiler import ProfilerActivity, profile
 
     tc, (rt, rl, og, mb, rr, _) = small_trial_case(dev, n, 31, 32, None)
     unit_fused.trial_apply(tc, rt, rl, og, mb, rr)
-    torch.cuda.synchronize()
     calls = 4
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            unit_fused.trial_apply(tc, rt, rl, og, mb, rr)
+    want = "trial_small_kernel" if n <= 8 else "trial_large_kernel"
+    for session in range(3):
+        origs = [(og + 29 * (session * calls + j + 1)) % 256
+                 for j in range(calls)]
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if getattr(e, "device_type", None)
-             == torch.autograd.DeviceType.CUDA]
-    want = (("trial_small_kernel",) if n <= 8
-            else ("trial_modes_kernel", "select_kernel"))
-    assert len(names) == calls * len(want), names
-    for key in want:
-        assert sum(key in x for x in names) == calls, names
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs = [unit_fused.trial_apply(tc, rt, rl, o, mb, rr)
+                    for o in origs]
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if getattr(e, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA]
+        assert all(want in x for x in names), names
+        assert len(names) <= calls, names
+        for o, got in zip(origs, outs):
+            plain = unit_fused.trial_apply(tc, rt, rl, o, mb, rr,
+                                           impl="plain")
+            for x, y in zip(got, plain):
+                assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        if len(names) == calls:
+            break
+    assert len(names) == calls, names
 
 
 @pytest.mark.cuda

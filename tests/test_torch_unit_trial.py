@@ -240,18 +240,23 @@ def test_i32_sum_wraps_like_int32():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
 def test_table_block_holds_every_table(n):
     """`consts_from_numpy` puts the kernel's tables in one block: each
     table at its offset (16-byte aligned) with its values, the `k_*`
     tensors views of the block, and the kernel's `TableSet` pointing at
-    each table, with the scalar parameters by value."""
+    each table, with the scalar parameters by value; the tables only the
+    n = 16 / 32 kernel reads exist at n > 8 only (null pointers below);
+    at n > 8 the rate tables are one row (every mode's); a call's output
+    buffer holds the outputs and nothing else at every n."""
     cst = consts(n, 32, "port")
     tc = t_unit_fused.consts_from_numpy(cst, device="cpu")
     block, layout = tc["k_block"], tc["k_layout"]
     assert block.dtype == torch.int32 and block.is_contiguous()
-    assert set(layout) == set(t_unit_fused.TABLE_KEYS
-                              + t_unit_fused.PARAM_KEYS)
+    keys = t_unit_fused.table_keys(n)
+    assert set(keys) == set(t_unit_fused.TABLE_KEYS) - (
+        set() if n > 8 else set(t_unit_fused.LARGE_TABLE_KEYS))
+    assert set(layout) == set(keys + t_unit_fused.PARAM_KEYS)
     words = block.numpy()
     for k, (off, shape, dtype) in layout.items():
         want = np.ascontiguousarray(cst[k])
@@ -262,12 +267,15 @@ def test_table_block_holds_every_table(n):
         assert tc[k].data_ptr() == block.data_ptr() + 4 * off
     st = tc["k_struct"]
     for k in t_unit_fused.TABLE_KEYS:
-        assert getattr(st, k[2:]) == tc[k].data_ptr(), k
+        want = tc[k].data_ptr() if k in keys else None
+        assert getattr(st, k[2:]) == want, k
     np.testing.assert_array_equal(np.array(st.ip[:]), cst["k_iparams"])
     np.testing.assert_array_equal(np.array(st.fp[:], np.float32),
                                   cst["k_fparams"])
     assert tc["k_struct_ptr"] == ctypes.addressof(st)
     assert tc["k_device"] == block.device
+    if n > 8:
+        assert cst["k_iparams"][1] == 1 and cst["k_scan"].shape == (1, n * n)
     assert t_unit_fused.out_words(n, 31) == 31 * (2 + 2 * n * n + 8)
 
 
