@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two encode paths at 1080p (1056x1920, QP 32, CTB 32,
-NxN, live rate evolution, one frame) through the entry points a user
-calls: the regular policy, and the `switch` policy (the PNN as a signalled
-36th mode) with the frozen singles zoo
-(`artifacts/frozen/qpnn_w{4,8,16,32}_single.npz`, no pair models, mean
-86.8568 of `artifacts/training_set/luminance/means/mean_training.pkl` for
-every width); and the float PNN prediction path (Tables I-V,
+Drives the port's encode paths at 1080p (1056x1920, QP 32, CTB 32, NxN,
+live rate evolution) through the entry points a user calls: the regular
+policy, and the `switch` policy (the PNN as a signalled 36th mode) with
+the frozen singles zoo (`artifacts/frozen/qpnn_w{4,8,16,32}_single.npz`,
+no pair models, mean 86.8568 of
+`artifacts/training_set/luminance/means/mean_training.pkl` for every
+width), one frame per call and four (frame batching), the streaming
+encoder, and the port's decoder on those streams; and the float PNN
+prediction path (Tables I-V,
 `evaluation/prediction_comparison.compare_on_channels`) on the 1080p
 frame's luma with the six float singles of the chip copy.  It holds each
 hand-written kernel against its plain PyTorch version.  Phases, each
@@ -49,6 +51,23 @@ printing one line with its seconds:
      which must equal the PNN calls of the step loop
   7  the same switch encode through the plain trial and plain merger:
      identical to phase 6
+ 10  the 1080p regular encode of four distinct frames (the frame, its
+     left-right and up-down flips, a 64-column roll) as one batch of 4:
+     each frame identical to its own b = 1 kernel-path encode; the device
+     half per frame against phase 4's, trial launches equal to the step
+     loop's calls
+ 11  the 1080p switch encode of [frame, flip, flip, frame] as one batch:
+     frames 0 and 3 identical to phase 6, frames 1 and 2 to each other;
+     device half per frame, trial and merger launches
+ 12  `encode_stream_wavefront2` over 9 regular 1080p frames at batch 4
+     (two full batches and one padded): each stream and reconstruction
+     identical to its frame's b = 1 encode; end-to-end frames/s, with the
+     stream's own device halves and packs timed inside the run, beside
+     phase 10's device half plus pack
+ 13  the port's decoder on the card: the phase-4 regular, phase-6 switch
+     and phase-11 frame-1 switch streams back to the encoder's
+     reconstruction; seconds, and merger launches, which must equal the
+     decoder's PNN forwards of conv models
   9  (runs before 8) the float prediction path on the card, per float
      single (w4/w8 FC, w4/w8 refconv, w16, w32): the forward on the
      natural frame's seeded contexts and the bf16 kernels against the JAX
@@ -58,7 +77,9 @@ printing one line with its seconds:
      2/N); then `compare_on_channels` on the 1080p luma with 2048
      positions and the four default masks: PSNR rows, seconds, and
      kernel launches, which must equal the forwards' chunk calls
-  8  per kernel, on phase-4, phase-6 and phase-9 inputs: launches, max abs
+  8  per kernel, on phase-4, phase-6 and phase-9 inputs, and on the batched
+     paths' (the trial at 124 slots from phase 10, the merger at N = 124
+     from phase 11 and at N = 1 from phase 13's decode): launches, max abs
      error, ms per call (CUDA events, calls queued back to back; where
      there is a library call, the kernel and it timed in turns, kernel,
      library, library, kernel, ...; and the same queued behind a spin of
@@ -134,6 +155,7 @@ FC_CHECK_N = (1, 7, 127, 128, 129, 200, 256, 1024, 2048)
 SPIN_CYCLES = 1_000_000     # about 0.5 ms of the card's clock (queued timing)
 MERGER_CHECK_N = (1, 31, 33, 256, 1024, 2048)
 SERVING_BATCHES = (256, 2048)   # scripts/profile_mfu.py's FC / merger rows
+STREAM_FRAMES = 9           # the streaming phase: batches of 4, the last padded
 MANIFEST = os.path.join(REPO, "artifacts", "frozen", "manifest_quantized.txt")
 MEAN_PKL = os.path.join(REPO, "artifacts", "training_set", "luminance",
                         "means", "mean_training.pkl")
@@ -546,15 +568,16 @@ def main():
     captured = {}
     orig_trial, orig_merger = unit_fused._kernel_trial, merger_int._kernel
 
-    def capture_trial(tc, *args):    # one phase-4 input set per n
+    def capture_trial(tc, *args):    # one input set per (n, slots)
         # (ref_top, ref_left, orig, mode_bits, rate_rows); the regular
         # path passes no PNN prediction.
-        if tc["n"] not in captured and args[5] is None:
-            captured[tc["n"]] = (tc, [a.clone() for a in args[:5]])
+        key = (tc["n"], args[0].shape[0])
+        if key not in captured and args[5] is None:
+            captured[key] = (tc, [a.clone() for a in args[:5]])
         return orig_trial(tc, *args)
 
-    def capture_merger(x, w, bb):     # one phase-6 input set per M
-        key = ("merger", x.shape[2])
+    def capture_merger(x, w, bb):     # one input set per (M, N)
+        key = ("merger", x.shape[2], x.shape[0])
         if key not in captured:
             captured[key] = [a.clone() for a in (x, w, bb)]
         return orig_merger(x, w, bb)
@@ -616,6 +639,45 @@ def main():
                                  f"PSNR {psnr}")
         return recon, grids, res, t_dev, t_pack, psnr, counts
 
+    def encode_batch(frames, policy, capture=None):
+        """One batched encode of (B, H, W) frames, its counts read around
+        the device half: (per-frame [(recon, grids, result)], device
+        seconds, pack seconds for all frames, counts)."""
+        pnn = frozen if policy != "regular" else None
+        nf, h, w = frames.shape
+        t0 = time.perf_counter()
+        wavefront2._get_plan(h, w, QP, 1.0, 32, True, True, dev,
+                             policy=policy, bundle=pnn, n_frames=nf)
+        say(f"{h}x{w} {policy} b={nf} plan: {time.perf_counter() - t0:.2f}"
+            f" s")
+        torch.cuda.synchronize()
+        unit_fused.reset_launch_counts()
+        merger_int.reset_launch_counts()
+        if capture:
+            unit_fused._kernel_trial = capture_trial
+            merger_int._kernel = capture_merger
+        t0 = time.perf_counter()
+        try:
+            out = wavefront2.encode_arrays_wavefront2_batch(
+                frames, QP, policy=policy, pnn=pnn, rate_evolve=True,
+                device=dev)
+            torch.cuda.synchronize()
+        finally:
+            unit_fused._kernel_trial = orig_trial
+            merger_int._kernel = orig_merger
+        t_dev = time.perf_counter() - t0
+        counts = (dict(unit_fused.launches), dict(merger_int.launches))
+        t0 = time.perf_counter()
+        results = [(recon, grids, wavefront2._arrays_to_result(
+            f, QP, (recon,) + grids, policy, True))
+            for f, (recon, grids) in zip(frames, out)]
+        t_pack = time.perf_counter() - t0
+        for f, (recon, _, _) in zip(frames, results):
+            mse = np.mean((recon.astype(np.float64) - f) ** 2)
+            if not 20.0 < 10 * np.log10(255.0 ** 2 / mse) < 60.0:
+                raise AssertionError(f"implausible batched output: {mse}")
+        return results, t_dev, t_pack, counts
+
     def assert_same_encode(a, c, what):
         if not np.array_equal(a[0], c[0]):
             raise AssertionError(f"{what} reconstruction: kernel != plain")
@@ -669,6 +731,129 @@ def main():
             raise AssertionError("the plain path launched a kernel")
         say(f"1080p switch plain path: device half {sw_p[3]:.3f} s; recon, "
             f"11 grids and stream identical to the kernel path")
+
+    # ---- phases 10-13: frame batching, streaming and decoding ----
+    frames4 = np.stack([frame, np.ascontiguousarray(frame[:, ::-1]),
+                        np.ascontiguousarray(frame[::-1]),
+                        np.roll(frame, 64, axis=1)])
+    with Phase("10 1080p regular b=4"):
+        singles = [reg_k] + [encode(f, "regular", "kernel")
+                             for f in frames4[1:]]
+        b4, t_dev4, t_pack4, (b4_trials, _) = encode_batch(
+            frames4, "regular", capture=True)
+        for i, (one, got) in enumerate(zip(singles, b4)):
+            assert_same_encode(got, one, f"1080p b=4 frame {i}")
+        say(f"1080p regular b=4 (frame, left-right flip, up-down flip, "
+            f"64-column roll): each frame identical to its b=1 encode; "
+            f"device half {t_dev4:.3f} s = {t_dev4 / 4:.3f} s a frame "
+            f"against b=1 {t_dev:.3f} s (phase 4; the other frames' b=1 "
+            f"halves {', '.join(f'{x[3]:.3f}' for x in singles[1:])} s); "
+            f"pack {t_pack4:.3f} s for 4 frames; trial launches {b4_trials}"
+            f" (step loop trial calls {want_trials})")
+        if b4_trials != want_trials:
+            raise AssertionError("b=4: trial launches != trial calls")
+
+    with Phase("11 1080p switch b=4"):
+        sw4_frames = np.stack([frame, frames4[1], frames4[1], frame])
+        sw4, t_dev_s4, t_pack_s4, (sw4_trials, sw4_mergers) = encode_batch(
+            sw4_frames, "switch", capture=True)
+        for i in (0, 3):
+            assert_same_encode(sw4[i], sw_k, f"1080p switch b=4 frame {i}")
+        assert_same_encode(sw4[1], sw4[2], "1080p switch b=4 frames 1, 2")
+        say(f"1080p switch b=4 (frame, flip, flip, frame): frames 0 and 3 "
+            f"identical to phase 6, frames 1 and 2 to each other; device "
+            f"half {t_dev_s4:.3f} s = {t_dev_s4 / 4:.3f} s a frame against "
+            f"b=1 {t_dev_s:.3f} s; pack {t_pack_s4:.3f} s; trial launches "
+            f"{sw4_trials}, merger launches {sw4_mergers} (step loop PNN "
+            f"calls {want_mergers})")
+        if sw4_trials != want_trials or sw4_mergers != want_mergers:
+            raise AssertionError("switch b=4: launches != step loop calls")
+
+    with Phase("12 stream"):
+        stream_in = [frames4[i % 4] for i in range(STREAM_FRAMES)]
+        batches = -(-STREAM_FRAMES // 4)
+        # The stream's own device halves (`run`, which ends with the copy
+        # to the host) and packs, timed inside the same run.
+        orig_run, orig_pack = wavefront2.run, wavefront2._host_pack_one
+        spent = {"run": [], "pack": []}
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                spent[name].append(time.perf_counter() - t)
+                return out
+            return call
+
+        torch.cuda.synchronize()
+        unit_fused.reset_launch_counts()
+        wavefront2.run = timed("run", orig_run)
+        wavefront2._host_pack_one = timed("pack", orig_pack)
+        t0 = time.perf_counter()
+        try:
+            streamed = list(wavefront2.encode_stream_wavefront2(
+                iter(stream_in), QP, batch=4, rate_evolve=True, device=dev))
+        finally:
+            wavefront2.run, wavefront2._host_pack_one = orig_run, orig_pack
+        t_stream = time.perf_counter() - t0
+        st_trials = dict(unit_fused.launches)
+        if len(streamed) != STREAM_FRAMES:
+            raise AssertionError(f"stream gave {len(streamed)} results")
+        for i, res in enumerate(streamed):
+            one = singles[i % 4]
+            if (res.bitstream != one[2].bitstream
+                    or not np.array_equal(res.reconstruction, one[0])):
+                raise AssertionError(f"stream frame {i} != its b=1 encode")
+        if st_trials != {n: batches * k for n, k in want_trials.items()}:
+            raise AssertionError(f"stream: trial launches {st_trials}")
+        t_runs, t_packs = sum(spent["run"]), sum(spent["pack"])
+        say(f"stream of {STREAM_FRAMES} regular 1080p frames at batch 4 "
+            f"({batches} device runs, the last padded): each stream and "
+            f"reconstruction identical to its frame's b=1 encode; "
+            f"{t_stream:.3f} s end to end = "
+            f"{STREAM_FRAMES / t_stream:.4f} frames/s; of it the device "
+            f"halves {', '.join(f'{x:.3f}' for x in spent['run'])} s, the "
+            f"packs {t_packs:.3f} s ({STREAM_FRAMES} frames), the rest "
+            f"{t_stream - t_runs - t_packs:.3f} s; phase 10's device half "
+            f"plus pack gives {4 / (t_dev4 + t_pack4):.4f} frames/s; trial "
+            f"launches {st_trials}")
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import decoder
+    decode_mergers = {}
+    with Phase("13 decode"):
+        for what, stream, want, pnn in (
+                ("1080p regular (phase 4)", res_k.bitstream, reg_k[0],
+                 None),
+                ("1080p switch (phase 6)", res_s.bitstream, sw_k[0], frozen),
+                ("1080p switch b=4 frame 1 (phase 11)", sw4[1][2].bitstream,
+                 sw4[1][0], frozen)):
+            torch.cuda.synchronize()
+            merger_int.reset_launch_counts()
+            merger_int._kernel = capture_merger
+            t0 = time.perf_counter()
+            try:
+                dec = decoder.FrameDecoder(stream, pnn=pnn, device=dev)
+                out = dec.decode()
+                torch.cuda.synchronize()
+            finally:
+                merger_int._kernel = orig_merger
+            t_decode = time.perf_counter() - t0
+            got = dict(merger_int.launches)
+            conv = dec.pnn.forwards["conv"] if pnn is not None else 0
+            fc = dec.pnn.forwards["fc"] if pnn is not None else 0
+            if not np.array_equal(out.reconstruction, want):
+                raise AssertionError(f"decode of {what} != the encoder's "
+                                     f"reconstruction")
+            if sum(got.values()) != conv or (pnn is not None and not conv):
+                raise AssertionError(f"{what}: merger launches {got} != "
+                                     f"conv PNN forwards {conv}")
+            if what.startswith("1080p switch (phase 6)"):
+                decode_mergers = got
+            say(f"decode of the {what} stream on the card: "
+                f"{t_decode:.3f} s, reconstruction identical to the "
+                f"encoder's; PNN forwards conv {conv}, fc {fc}; merger "
+                f"launches {got}")
 
     # ---- phase 9 (before 8): the float prediction path ----
     from context_adaptive_neural_network_based_prediction_tpu_torch \
@@ -767,25 +952,27 @@ def main():
     # ---- phase 8: per-kernel numbers at the main paths' shapes ----
     with Phase("8 kernel timing"):
         rows = []
-        for n in (4, 8, 16, 32):
-            tc, args = captured[n]
+
+        def trial_row(name, n, slots, n_launches, what):
+            tc, args = captured[(n, slots)]
             call = lambda impl: unit_fused.trial_apply(tc, *args, impl=impl)
             got, want = call("kernel"), call("plain")
-            assert_equal(got, want, f"phase-4 inputs n={n}")
+            assert_equal(got, want, f"{what} inputs n={n}")
             bound_ms, bound_by, route = trial_bound_ms(tc, args, int_ops,
                                                        f64_ops)
             rows.append(kernel_row(
-                f"unit_trial_n{n}", SOURCE, REPLACES[n], launches[n],
+                name, SOURCE, REPLACES[n], n_launches,
                 max_abs_err(got, want), lambda: call("kernel"),
                 lambda: call("plain"), bound_ms, bound_by, None,
                 TRIAL_KERNELS[n]))
             rows[-1]["bound_route"] = route
-        for n, m in NN_MAPS.items():
-            x, w, bb = captured[("merger", m)]
+
+        def merger_row(name, m, slots, n_launches, what):
+            x, w, bb = captured[("merger", m, slots)]
             call = lambda impl: merger_int.merger_int_forward(x, w, bb,
                                                               impl=impl)
             got, want = call("kernel"), call("plain")
-            assert_equal(got, want, f"phase-6 inputs M={m}")
+            assert_equal(got, want, f"{what} inputs M={m}")
             xm = x.permute(2, 0, 1).to(torch.float64).contiguous()
             wm = w.permute(2, 0, 1).to(torch.float64).contiguous()
             lib = torch.bmm(xm, wm) + bb.T.to(torch.float64)[:, None, :]
@@ -793,12 +980,30 @@ def main():
                 raise AssertionError(f"fp64 bmm != merger at M={m}")
             bound_ms, bound_by = merger_bound_ms(x, w, bb, int_ops)
             rows.append(kernel_row(
-                f"merger_int_m{m}", MERGER_SOURCE, MERGER_REPLACES,
-                sw_mergers[m], max_abs_err([got], [want]),
-                lambda: call("kernel"), lambda: call("plain"), bound_ms,
-                bound_by, lambda: torch.bmm(xm, wm),
-                ("merger_int_vec_kernel",)))
+                name, MERGER_SOURCE, MERGER_REPLACES, n_launches,
+                max_abs_err([got], [want]), lambda: call("kernel"),
+                lambda: call("plain"), bound_ms, bound_by,
+                lambda: torch.bmm(xm, wm), ("merger_int_vec_kernel",)))
+
+        b1 = plan["b_eff"]
+        for n in (4, 8, 16, 32):
+            trial_row(f"unit_trial_n{n}", n, b1, launches[n], "phase-4")
+        for n, m in NN_MAPS.items():
+            merger_row(f"merger_int_m{m}", m, b1, sw_mergers[m], "phase-6")
         rows += float_kernel_rows(captured, float_launches, dev)
+        # The batched paths' shapes: the trial at b_eff = 4 x 31 slots
+        # (phase 10), the merger at N = 124 (phase 11) and at N = 1 (the
+        # decoder, phase 13).
+        for n in (4, 8, 16, 32):
+            trial_row(f"unit_trial_n{n}_b{4 * b1}", n, 4 * b1, b4_trials[n],
+                      "phase-10")
+        for n, m in NN_MAPS.items():
+            merger_row(f"merger_int_m{m}_n{4 * b1}", m, 4 * b1,
+                       sw4_mergers[m], "phase-11")
+        for m in NN_MAPS.values():
+            if ("merger", m, 1) in captured:
+                merger_row(f"merger_int_m{m}_n1_decoder", m, 1,
+                           decode_mergers.get(m, 0), "phase-13")
         with tempfile.TemporaryDirectory() as tmp:
             for case, (us, dev_us) in kernel_variants.empty_floor(
                     dev, tmp).items():
@@ -827,24 +1032,48 @@ def main():
                 f"{dev_ms} ms on the card; x {want_mergers[NN_MAPS[n]]} "
                 f"calls = {ms * want_mergers[NN_MAPS[n]] / 1e3:.3f} s of "
                 f"the switch path")
-        if all(r["device_ms"] is not None for r in rows):
-            busy_t = sum(r["device_ms"] * r["launches"] for r in rows[:4])
-            busy_m = sum(r["device_ms"] * r["launches"] for r in rows[4:8])
-            sw_t = sum(r["device_ms"] * sw_trials[n]
-                       for r, n in zip(rows[:4], (4, 8, 16, 32)))
-            say(f"1080p kernel path: trial kernels busy {busy_t / 1e3:.3f} s "
-                f"of the {t_dev:.3f} s device half "
-                f"({busy_t / 10 / t_dev:.1f}%)")
-            say(f"1080p switch kernel path: trial kernels busy "
-                f"{sw_t / 1e3:.3f} s, merger kernels {busy_m / 1e3:.3f} s of "
-                f"the {t_dev_s:.3f} s device half "
-                f"({(sw_t + busy_m) / 10 / t_dev_s:.1f}%)")
-            for r in rows[8:]:
-                if r["name"].endswith("_path"):
-                    calls = r["launches"] // r["launches_per_call"]
-                    say(f"{r['name']}: kernels busy "
-                        f"{r['device_ms'] * calls / 1e3:.4f} s of the 1080p "
-                        f"comparison ({calls} calls)")
+        # Busy shares, each printed where the profiler kept every row it
+        # reads (it drops a session's records now and then).
+        named = {r["name"]: r for r in rows}
+
+        def busy(names, counts):
+            pairs = [(named[name], counts[key]) for name, key in names]
+            if any(r["device_ms"] is None for r, _ in pairs):
+                return None
+            return sum(r["device_ms"] * k for r, k in pairs) / 1e3
+
+        def trials(suffix=""):
+            return [(f"unit_trial_n{n}{suffix}", n) for n in (4, 8, 16, 32)]
+
+        def mergers(suffix=""):
+            return [(f"merger_int_m{m}{suffix}", m) for m in NN_MAPS.values()]
+
+        busy_t, sw_t = busy(trials(), launches), busy(trials(), sw_trials)
+        busy_m = busy(mergers(), sw_mergers)
+        busy_t4 = busy(trials(f"_b{4 * b1}"), b4_trials)
+        busy_m4 = busy(mergers(f"_n{4 * b1}"), sw4_mergers)
+        if busy_t is not None:
+            say(f"1080p kernel path: trial kernels busy {busy_t:.3f} s of "
+                f"the {t_dev:.3f} s device half "
+                f"({100 * busy_t / t_dev:.1f}%)")
+        if sw_t is not None and busy_m is not None:
+            say(f"1080p switch kernel path: trial kernels busy {sw_t:.3f} s,"
+                f" merger kernels {busy_m:.3f} s of the {t_dev_s:.3f} s "
+                f"device half ({100 * (sw_t + busy_m) / t_dev_s:.1f}%)")
+        if busy_t4 is not None:
+            say(f"1080p regular b=4: trial kernels busy {busy_t4:.3f} s of "
+                f"the {t_dev4:.3f} s device half "
+                f"({100 * busy_t4 / t_dev4:.1f}%)")
+        if busy_m4 is not None:
+            say(f"1080p switch b=4: merger kernels busy {busy_m4:.3f} s of "
+                f"the {t_dev_s4:.3f} s device half "
+                f"({100 * busy_m4 / t_dev_s4:.1f}%)")
+        for r in rows[8:]:
+            if r["name"].endswith("_path") and r["device_ms"] is not None:
+                calls = r["launches"] // r["launches_per_call"]
+                say(f"{r['name']}: kernels busy "
+                    f"{r['device_ms'] * calls / 1e3:.4f} s of the 1080p "
+                    f"comparison ({calls} calls)")
     for name, sec in float_seconds.items():
         say(f"float path {name}: 1080p compare_on_channels {sec:.3f} s")
     for r in rows:

@@ -4,8 +4,10 @@ The port's copy of the normative tables of the JAX package's
 `codec/cabac.py` that the rate model needs: the LPS range table, the
 renormalisation table, HM's 7-bit state transitions, the FAST_BIT_EST
 entropy table (15-bit fixed point per state) and the context init formula
-(HM-16.15 `ContextModel.cpp:56-117`, `TComCABACTables.cpp:43-118`).  The
-arithmetic coder itself stays on the host in `native/cabac_pack.cpp`.
+(HM-16.15 `ContextModel.cpp:56-117`, `TComCABACTables.cpp:43-118`), and
+the decoding engine `CabacDecoder` (`TDecBinCoderCABAC.cpp:68-370`) the
+port's frame decoder reads streams with.  The arithmetic encoder stays on
+the host in `native/cabac_pack.cpp`.
 """
 
 from __future__ import annotations
@@ -99,6 +101,112 @@ def init_context_state(qp: int, init_value: int) -> int:
 
 def init_contexts(qp: int, init_values) -> np.ndarray:
     return np.array([init_context_state(qp, v) for v in init_values], dtype=np.int32)
+
+
+# Python-list copies of the tables for the decoder's per-bin lookups.
+_LPS = LPS_TABLE.tolist()
+_RENORM = RENORM_TABLE.tolist()
+_NEXT_MPS = NEXT_STATE_MPS.tolist()
+_NEXT_LPS = NEXT_STATE_LPS.tolist()
+
+
+class CabacDecoder:
+    """HM TDecBinCABAC reading from a bytes object.  `ctx` is the context
+    state array (numpy or a list, which the frame decoder uses: faster per
+    bin), updated in place."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+        self.range = 510
+        self.bits_needed = -8
+        self.value = (self._read_byte() << 8) | self._read_byte()
+
+    def _read_byte(self) -> int:
+        if self.pos < len(self.data):
+            b = self.data[self.pos]
+            self.pos += 1
+            return b
+        return 0  # HM reads zero past the end of the NAL payload
+
+    def decode_bin(self, ctx: np.ndarray, idx: int) -> int:
+        state = int(ctx[idx])
+        lps = _LPS[state >> 1][(self.range >> 6) - 4]
+        self.range -= lps
+        scaled_range = self.range << 7
+        if self.value < scaled_range:
+            bin_value = state & 1
+            ctx[idx] = _NEXT_MPS[state]
+            if scaled_range < (256 << 7):
+                self.range = scaled_range >> 6
+                self.value += self.value
+                self.bits_needed += 1
+                if self.bits_needed == 0:
+                    self.bits_needed = -8
+                    self.value += self._read_byte()
+        else:
+            bin_value = 1 - (state & 1)
+            num_bits = _RENORM[lps >> 3]
+            self.value = (self.value - scaled_range) << num_bits
+            self.range = lps << num_bits
+            ctx[idx] = _NEXT_LPS[state]
+            self.bits_needed += num_bits
+            if self.bits_needed >= 0:
+                self.value += self._read_byte() << self.bits_needed
+                self.bits_needed -= 8
+        return bin_value
+
+    def decode_bin_ep(self) -> int:
+        self.value += self.value
+        self.bits_needed += 1
+        if self.bits_needed >= 0:
+            self.bits_needed = -8
+            self.value += self._read_byte()
+        scaled_range = self.range << 7
+        if self.value >= scaled_range:
+            self.value -= scaled_range
+            return 1
+        return 0
+
+    def decode_bins_ep(self, num_bins: int) -> int:
+        bins = 0
+        while num_bins > 8:
+            self.value = (self.value << 8) + (self._read_byte() << (8 + self.bits_needed))
+            scaled_range = self.range << 15
+            for _ in range(8):
+                bins += bins
+                scaled_range >>= 1
+                if self.value >= scaled_range:
+                    bins += 1
+                    self.value -= scaled_range
+            num_bins -= 8
+        self.bits_needed += num_bins
+        self.value <<= num_bins
+        if self.bits_needed >= 0:
+            self.value += self._read_byte() << self.bits_needed
+            self.bits_needed -= 8
+        scaled_range = self.range << (num_bins + 7)
+        for _ in range(num_bins):
+            bins += bins
+            scaled_range >>= 1
+            if self.value >= scaled_range:
+                bins += 1
+                self.value -= scaled_range
+        return bins
+
+    def decode_bin_trm(self) -> int:
+        self.range -= 2
+        scaled_range = self.range << 7
+        if self.value >= scaled_range:
+            return 1
+        if scaled_range < (256 << 7):
+            self.range = scaled_range >> 6
+            self.value += self.value
+            self.bits_needed += 1
+            if self.bits_needed == 0:
+                self.bits_needed = -8
+                self.value += self._read_byte()
+        return 0
 
 
 EP_BIN_BITS = 32768  # one bypass bin = 1.0 bit in 15-bit fixed point

@@ -4,7 +4,7 @@ Parity with HM's initROM-generated `g_scanOrder` tables and the spec's 6.5.3
 up-right diagonal scan: scan position 0 is DC; within each 4x4 coefficient
 group the pattern is applied, and the groups themselves are visited in the
 same pattern over the group grid.  (The port's copy of the JAX package's
-`codec/scans.py`, the parts the rate model needs.)
+`codec/scans.py`, the parts the rate model and the decoder need.)
 """
 
 from __future__ import annotations
@@ -17,9 +17,10 @@ SCAN_DIAG, SCAN_HOR, SCAN_VER = 0, 1, 2
 MDCS_ANGLE_LIMIT = 4        # TComRom.h; scan swaps within +-4 of HOR/VER
 MDCS_MAXIMUM_WIDTH = 8      # mode-dependent scan only for luma TUs <= 8x8
 
-# g_uiGroupIdx for last-position coding.
+# g_uiGroupIdx / g_uiMinInGroup for last-position coding.
 GROUP_IDX = np.array([0, 1, 2, 3, 4, 4, 5, 5, 6, 6, 6, 6, 7, 7, 7, 7,
                       8, 8, 8, 8, 8, 8, 8, 8, 9, 9, 9, 9, 9, 9, 9, 9], dtype=np.int32)
+MIN_IN_GROUP = np.array([0, 1, 2, 3, 4, 6, 8, 12, 16, 24], dtype=np.int32)
 
 
 def _pattern(n_cols: int, n_rows: int, scan_type: int):
@@ -56,6 +57,14 @@ def scan_order(width: int, height: int, scan_type: int) -> np.ndarray:
         for x, y in inner:
             out.append((cgx * 4 + x) + (cgy * 4 + y) * width)
     return np.array(out, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def cg_scan_order(width: int, height: int, scan_type: int) -> np.ndarray:
+    """Ungrouped scan over the coefficient-group grid: scanPos -> CG raster."""
+    cg_cols, cg_rows = max(width // 4, 1), max(height // 4, 1)
+    return np.array([x + y * cg_cols for x, y in _pattern(cg_cols, cg_rows, scan_type)],
+                    dtype=np.int32)
 
 
 def select_scan(mode: int, n: int, is_intra: bool = True) -> int:

@@ -1,17 +1,26 @@
-"""HEVC residual-syntax context helpers the static rate model needs.
+"""HEVC syntax elements: the context helpers the static rate model needs and
+the decode side of intra modes and residual coefficients.
 
-The port's copy of the context-index functions of the JAX package's
-`codec/syntax.py` (HM `TComTrQuant::{calcPatternSigCtx,getSigCtxInc}`,
-`getLastSignificantContextParameters`, `TComDataCU::getCoefScanIdx`).
-Coefficient coding itself happens in the native packer.
+The port's copy of the JAX package's `codec/syntax.py`: the context-index
+functions (HM `TComTrQuant::{calcPatternSigCtx,getSigCtxInc}`,
+`getLastSignificantContextParameters`, `TComDataCU::getCoefScanIdx`), the
+MPM derivation (`TComDataCU::getIntraDirPredictor`), and the decoders of
+the luma mode (`TDecSbac::parseIntraDirLumaAng`) and of one TU's
+coefficients with sign-data hiding (`TDecSbac::parseCoeffNxN`).  Coding
+itself happens in the native packer.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import scans
+from . import cabac, scans
 from .contexts import OFFSETS
+
+PLANAR_IDX, DC_IDX, HOR_IDX, VER_IDX = 0, 1, 10, 26
+C1FLAG_NUMBER = 8
+SBH_THRESHOLD = 4
+COEF_REMAIN_BIN_REDUCTION = 3
 
 CTX_IND_MAP_4X4 = np.array([0, 1, 4, 5,
                             2, 3, 4, 5,
@@ -86,6 +95,12 @@ def _first_sig_ctx(n: int, scan_type: int, ch: _ChannelParams) -> int:
     return 21
 
 
+def _greater1_ctx_set(subset_idx: int, prev_c1_zero: bool,
+                      ch: _ChannelParams) -> int:
+    base = 2 if (subset_idx > 0 and not ch.is_chroma) else 0
+    return base + (1 if prev_c1_zero else 0)
+
+
 def _scan_for(mode: int, n: int, ch: _ChannelParams) -> int:
     """Mode-dependent coefficient scan: luma up to 8x8, chroma only 4x4
     (HM getCoefScanIdx)."""
@@ -93,3 +108,199 @@ def _scan_for(mode: int, n: int, ch: _ChannelParams) -> int:
         return scans.SCAN_DIAG
     return scans.select_scan(mode, n)
 
+
+# ----------------------------------------------------------------- modes ----
+
+def mpm_candidates(left_mode: int, above_mode: int):
+    """Three most-probable modes from the left/above PU modes (DC if absent)."""
+    if left_mode == above_mode:
+        if left_mode > 1:
+            return [left_mode,
+                    ((left_mode + 29) % 32) + 2,
+                    ((left_mode - 1) % 32) + 2]
+        return [PLANAR_IDX, DC_IDX, VER_IDX]
+    mpm0, mpm1 = left_mode, above_mode
+    if left_mode and above_mode:
+        mpm2 = PLANAR_IDX
+    elif (left_mode + above_mode) < 2:
+        mpm2 = VER_IDX
+    else:
+        mpm2 = DC_IDX
+    return [mpm0, mpm1, mpm2]
+
+
+def decode_intra_mode(dec: cabac.CabacDecoder, ctx: np.ndarray, mpms) -> int:
+    if dec.decode_bin(ctx, OFFSETS.prev_intra):
+        if dec.decode_bin_ep() == 0:
+            return mpms[0]
+        return mpms[2] if dec.decode_bin_ep() else mpms[1]
+    rem = dec.decode_bins_ep(5)
+    for m in sorted(mpms):
+        if rem >= m:
+            rem += 1
+    return rem
+
+
+# -------------------------------------------------------------- residual ----
+
+def _read_coef_remain(dec: cabac.CabacDecoder, r_param: int) -> int:
+    prefix = 0
+    while prefix < 32 and dec.decode_bin_ep():
+        prefix += 1
+    if prefix < COEF_REMAIN_BIN_REDUCTION:
+        suffix = dec.decode_bins_ep(r_param) if r_param else 0
+        return (prefix << r_param) + suffix
+    suffix = dec.decode_bins_ep(prefix - COEF_REMAIN_BIN_REDUCTION + r_param)
+    return (((1 << (prefix - COEF_REMAIN_BIN_REDUCTION)) + COEF_REMAIN_BIN_REDUCTION - 1)
+            << r_param) + suffix
+
+
+def decode_coefficients(dec: cabac.CabacDecoder, ctx: np.ndarray, n: int,
+                        mode: int, sign_hiding: bool = False,
+                        channel: _ChannelParams = LUMA) -> np.ndarray:
+    """Decodes one non-empty n x n TU -> int32 coefficient block."""
+    ch = channel
+    log2n = n.bit_length() - 1
+    scan_type = _scan_for(mode, n, ch)
+    scan = scans.scan_order(n, n, scan_type)
+    scan_cg = scans.cg_scan_order(n, n, scan_type)
+    first_ctx = _first_sig_ctx(n, scan_type, ch)
+    width_in_groups = max(n // 4, 1)
+    flat = np.zeros(n * n, dtype=np.int32)
+
+    # ---- last position ----
+    blk_offset, shift = _last_ctx_params(log2n, ch)
+    max_group = int(scans.GROUP_IDX[n - 1])
+    group_x = 0
+    while group_x < max_group and dec.decode_bin(
+            ctx, ch.last_x + blk_offset + (group_x >> shift)):
+        group_x += 1
+    group_y = 0
+    while group_y < max_group and dec.decode_bin(
+            ctx, ch.last_y + blk_offset + (group_y >> shift)):
+        group_y += 1
+    lx = int(scans.MIN_IN_GROUP[group_x])
+    if group_x > 3:
+        count = (group_x - 2) >> 1
+        rem = 0
+        for _ in range(count):
+            rem = (rem << 1) | dec.decode_bin_ep()
+        lx += rem
+    ly = int(scans.MIN_IN_GROUP[group_y])
+    if group_y > 3:
+        count = (group_y - 2) >> 1
+        rem = 0
+        for _ in range(count):
+            rem = (rem << 1) | dec.decode_bin_ep()
+        ly += rem
+    if scan_type == scans.SCAN_VER:
+        lx, ly = ly, lx
+    pos_last = ly * n + lx
+    scan_pos_last = int(np.nonzero(scan == pos_last)[0][0])
+
+    sig_cg = np.zeros(max(width_in_groups * width_in_groups, 1), dtype=np.int32)
+    last_scan_set = scan_pos_last >> 4
+    c1 = 1
+    scan_pos_sig = scan_pos_last
+
+    for subset in range(last_scan_set, -1, -1):
+        sub_pos = subset << 4
+        go_rice = 0
+        sig_positions = []   # scan positions of nonzero coeffs, descending
+        num_nonzero = 0
+        last_nz_in_cg = -1
+        first_nz_in_cg = 16
+
+        if scan_pos_sig == scan_pos_last:
+            sig_positions.append(scan_pos_sig)
+            num_nonzero = 1
+            last_nz_in_cg = first_nz_in_cg = scan_pos_sig
+            scan_pos_sig -= 1
+
+        cg_blk = int(scan_cg[subset])
+        cg_y, cg_x = divmod(cg_blk, width_in_groups)
+        if subset == last_scan_set or subset == 0:
+            sig_cg[cg_blk] = 1
+        else:
+            right = cg_x < width_in_groups - 1 and sig_cg[cg_blk + 1]
+            below = cg_y < width_in_groups - 1 and sig_cg[cg_blk + width_in_groups]
+            ctx_cg = 1 if (right or below) else 0
+            sig_cg[cg_blk] = dec.decode_bin(ctx, ch.sig_cg + ctx_cg)
+
+        if sig_cg[cg_blk]:
+            right = cg_x < width_in_groups - 1 and sig_cg[cg_blk + 1]
+            below = cg_y < width_in_groups - 1 and sig_cg[cg_blk + width_in_groups]
+            pattern = (1 if right else 0) + (2 if below else 0)
+            while scan_pos_sig >= sub_pos:
+                rp = int(scan[scan_pos_sig])
+                py, px = divmod(rp, n)
+                if scan_pos_sig > sub_pos or subset == 0 or num_nonzero:
+                    ctx_sig = _sig_ctx(pattern, px, py, log2n, scan_type, first_ctx, ch)
+                    sig = dec.decode_bin(ctx, ctx_sig)
+                else:
+                    sig = 1  # inferred DC significance
+                if sig:
+                    sig_positions.append(scan_pos_sig)
+                    num_nonzero += 1
+                    if last_nz_in_cg == -1:
+                        last_nz_in_cg = scan_pos_sig
+                    first_nz_in_cg = scan_pos_sig
+                scan_pos_sig -= 1
+        else:
+            scan_pos_sig = sub_pos - 1
+
+        if num_nonzero > 0:
+            hidden = sign_hiding and (last_nz_in_cg - first_nz_in_cg >= SBH_THRESHOLD)
+            ctx_set = _greater1_ctx_set(subset, c1 == 0, ch)
+            c1 = 1
+            base_g1 = ch.greater1 + 4 * ctx_set
+            abs_levels = [1] * num_nonzero
+            num_c1 = min(num_nonzero, C1FLAG_NUMBER)
+            first_c2_idx = -1
+            gt1 = [0] * num_nonzero
+            for idx in range(num_c1):
+                symbol = dec.decode_bin(ctx, base_g1 + c1)
+                gt1[idx] = symbol
+                if symbol:
+                    c1 = 0
+                    if first_c2_idx == -1:
+                        first_c2_idx = idx
+                elif 0 < c1 < 3:
+                    c1 += 1
+            gt2 = 0
+            if c1 == 0 and first_c2_idx != -1:
+                gt2 = dec.decode_bin(ctx, ch.greater2 + ctx_set)
+
+            n_signs = num_nonzero - 1 if hidden else num_nonzero
+            coeff_signs = dec.decode_bins_ep(n_signs) if n_signs else 0
+
+            # Reconstruct levels.  Mirrors the encoder: a remainder is coded
+            # iff the flag-known partial level reaches the coding ceiling
+            # base_level = (idx < 8 ? 2 + first_coeff2 : 1).
+            first_coeff2 = 1
+            for idx in range(num_nonzero):
+                if idx < C1FLAG_NUMBER:
+                    base_level = 2 + first_coeff2
+                    partial = 1 + gt1[idx] + (gt2 if idx == first_c2_idx else 0)
+                else:
+                    base_level = 1
+                    partial = base_level
+                abs_levels[idx] = partial
+                if partial >= base_level:
+                    rem = _read_coef_remain(dec, go_rice)
+                    abs_levels[idx] = base_level + rem
+                    if abs_levels[idx] > (3 << go_rice):
+                        go_rice = min(go_rice + 1, 4)
+                if abs_levels[idx] >= 2:
+                    first_coeff2 = 0
+
+            total = sum(abs_levels)
+            for i, sp in enumerate(sig_positions):
+                rp = int(scan[sp])
+                if hidden and i == num_nonzero - 1:
+                    sign = 1 if (total & 1) else 0
+                else:
+                    sign = (coeff_signs >> (n_signs - 1 - i)) & 1
+                flat[rp] = -abs_levels[i] if sign else abs_levels[i]
+
+    return flat.reshape(n, n)

@@ -7,8 +7,12 @@ order; with no available unit the border is the DC value 128; a first gap
 back-fills from the first valid unit and later gaps replicate the last
 sample of the unit before.  `neighbor_unit_flags` gives HM's flags of
 every block position at once; the wavefront encoder runs the fill once per
-availability pattern at table-build time.  `FILTER_THRESHOLD` is
-`m_aucIntraFilter` for luma (`TComPrediction.cpp:43-56`).
+availability pattern at table-build time.  `coded_unit_flags` is the
+decoder's form: one block, from a grid of the 4x4 units reconstructed so
+far.  `filter_reference_samples` is the [1 2 1] / strong smoothing
+(`TComPattern.cpp:196-330`) and `use_filtered_for_mode` its per-mode
+choice, with `FILTER_THRESHOLD` `m_aucIntraFilter` for luma
+(`TComPrediction.cpp:43-56`).
 """
 
 from __future__ import annotations
@@ -45,6 +49,32 @@ def neighbor_unit_flags(order4: np.ndarray, y, x, n: int, height: int,
     flags.append(ok(y - 1, x - 1))
     flags += [ok(y - 1, x + j * unit) for j in range(n_units)]
     return np.stack(flags, axis=-1)
+
+
+def coded_unit_flags(unit_coded: np.ndarray, x: int, y: int, n: int,
+                     height: int, width: int, unit: int = UNIT) -> np.ndarray:
+    """Availability flags in HM line order for one n x n TB at (x, y), from
+    `unit_coded`, the bool grid of the 4x4 units reconstructed so far (the
+    JAX package's decoder form of `neighbor_unit_flags`,
+    `ops/reference_samples.py:38-64`).
+
+    Order: [below-left + left bottom..top (2n/unit units), corner, above +
+    above-right left..right (2n/unit units)].
+    """
+    n_units = (2 * n) // unit
+    flags = np.zeros(2 * n_units + 1, dtype=bool)
+
+    def unit_ok(px: int, py: int) -> bool:
+        if px < 0 or py < 0 or px >= width or py >= height:
+            return False
+        return bool(unit_coded[py // unit, px // unit])
+
+    for j in range(n_units):
+        flags[j] = unit_ok(x - 1, y + 2 * n - unit - j * unit)
+    flags[n_units] = unit_ok(x - 1, y - 1)
+    for j in range(n_units):
+        flags[n_units + 1 + j] = unit_ok(x + j * unit, y - 1)
+    return flags
 
 
 def fill_reference_samples(recon: np.ndarray, x: int, y: int, n: int,
@@ -123,3 +153,56 @@ def fill_reference_samples(recon: np.ndarray, x: int, y: int, n: int,
     # line[j] = left_col[2n - 1 - j]  ->  ref_left[1 + i] = line[2n - 1 - i].
     ref_left[1:] = line[2 * n - 1:: -1][: 2 * n]
     return ref_top, ref_left
+
+
+def filter_reference_samples(ref_top: np.ndarray, ref_left: np.ndarray, n: int,
+                             *, strong_intra_smoothing: bool = True,
+                             bit_depth: int = 8):
+    """[1 2 1]/4 smoothing (or bilinear strong smoothing at 32x32)."""
+    corner = int(ref_top[0])
+    top = ref_top[1:].astype(np.int64)
+    left = ref_left[1:].astype(np.int64)
+
+    use_strong = False
+    if strong_intra_smoothing and n == 32:
+        threshold = 1 << (bit_depth - 5)
+        bottom_left = int(left[2 * n - 1])
+        top_right = int(top[2 * n - 1])
+        bilinear_left = abs((bottom_left + corner) - 2 * int(left[n - 1])) < threshold
+        bilinear_above = abs((corner + top_right) - 2 * int(top[n - 1])) < threshold
+        use_strong = bilinear_left and bilinear_above
+
+    f_top = np.empty_like(ref_top)
+    f_left = np.empty_like(ref_left)
+    if use_strong:
+        shift = int(np.log2(2 * n))
+        i = np.arange(1, 2 * n)
+        bottom_left = int(left[2 * n - 1])
+        top_right = int(top[2 * n - 1])
+        f_left[1:2 * n] = ((2 * n - i) * corner + i * bottom_left + n) >> shift
+        f_left[2 * n] = bottom_left
+        f_top[1:2 * n] = ((2 * n - i) * corner + i * top_right + n) >> shift
+        f_top[2 * n] = top_right
+        f_top[0] = f_left[0] = corner
+    else:
+        # Interior [1 2 1], endpoints copied; the corner filters with its two
+        # neighbours (top[0] and left[0]).
+        ext = np.concatenate(([left[0]], [corner], top))      # left[0], c, top...
+        f_top_vals = (ext[:-2] + 2 * ext[1:-1] + ext[2:] + 2) >> 2  # filters c..top[2n-2]
+        f_top[0] = f_top_vals[0]
+        f_top[1:2 * n] = f_top_vals[1:2 * n]
+        f_top[2 * n] = top[2 * n - 1]
+        ext_l = np.concatenate(([top[0]], [corner], left))
+        f_left_vals = (ext_l[:-2] + 2 * ext_l[1:-1] + ext_l[2:] + 2) >> 2
+        f_left[0] = f_top[0]
+        f_left[1:2 * n] = f_left_vals[1:2 * n]
+        f_left[2 * n] = left[2 * n - 1]
+    return f_top.astype(np.int32), f_left.astype(np.int32)
+
+
+def use_filtered_for_mode(mode: int, n: int) -> bool:
+    """HM filteringIntraReferenceSamples decision for luma."""
+    if mode == 1:  # DC
+        return False
+    diff = min(abs(mode - 10), abs(mode - 26))
+    return diff > FILTER_THRESHOLD[n]

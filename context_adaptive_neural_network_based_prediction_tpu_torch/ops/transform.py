@@ -3,8 +3,10 @@
 The port's copy of the constants of the JAX package's `ops/transform.py`
 that the wavefront encoder's tables need: the DST-VII 4x4 pair, the integer
 DCT-II of sizes 4-32 (6-bit and 14-bit high-precision forward), and the
-quantiser scales.  The transforms themselves run inside the fused unit
-trial (`ops/unit_fused.py`, `ops/csrc/unit_trial.cu`).
+quantiser scales.  The encoder's transforms run inside the fused unit
+trial (`ops/unit_fused.py`, `ops/csrc/unit_trial.cu`); the decoder's
+dequantisation and inverse transform are the numpy twins here
+(`dequantize_np`, `inverse_transform_np`, exact integer arithmetic).
 """
 
 from __future__ import annotations
@@ -84,3 +86,39 @@ def dct_matrix(n: int, high_precision: bool = False) -> np.ndarray:
             else:
                 t[k, col] = -odd[(2 * n - q - 1) // 2]
     return t
+
+
+def transform_shift(log2_n: int, bit_depth: int = BIT_DEPTH) -> int:
+    return MAX_TR_DYNAMIC_RANGE - bit_depth - log2_n
+
+
+def inverse_transform_np(coeffs: np.ndarray, *, use_dst: bool = False,
+                         bit_depth: int = BIT_DEPTH) -> np.ndarray:
+    """Numpy twin of `inverse_transform`."""
+    n = coeffs.shape[-1]
+    t = (DST4 if use_dst else np.asarray(dct_matrix(n), np.int32)).astype(np.int64)
+    shift1 = TRANSFORM_MATRIX_SHIFT + 1
+    shift2 = (TRANSFORM_MATRIX_SHIFT + MAX_TR_DYNAMIC_RANGE - 1) - bit_depth
+    add1 = 1 << (shift1 - 1)
+    add2 = (1 << (shift2 - 1)) if shift2 > 0 else 0
+    lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
+    c = coeffs.astype(np.int64)
+    e = np.clip((np.einsum("ki,bkl->bil", t, c) + add1) >> shift1, lo, hi)
+    r = (np.einsum("bik,kn->bin", e, t) + add2) >> shift2
+    return np.clip(r, -32768, 32767).astype(np.int32)
+
+
+def dequantize_np(qcoeffs: np.ndarray, qp: int, *, bit_depth: int = BIT_DEPTH) -> np.ndarray:
+    """Numpy twin of `dequantize`."""
+    n = qcoeffs.shape[-1]
+    log2n = n.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    right_shift = IQUANT_SHIFT - (transform_shift(log2n, bit_depth) + per)
+    scale = INV_QUANT_SCALES[rem]
+    q = qcoeffs.astype(np.int64)
+    if right_shift > 0:
+        c = (q * scale + (1 << (right_shift - 1))) >> right_shift
+    else:
+        c = (q * scale) << (-right_shift)
+    lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
+    return np.clip(c, lo, hi).astype(np.int32)

@@ -1,8 +1,9 @@
-"""Wavefront v2 quadtree encoder (CTB 32, one frame; regular, substitution
-and switch policies).
+"""Wavefront v2 quadtree encoder (CTB 32; regular, substitution and switch
+policies; one frame or a batch of frames per call, and a streaming
+encoder).
 
 The port of the JAX package's `parallel/wavefront2.py` for the
-configuration its benchmark times, one frame at a time.  CTBs run along
+configuration its benchmark times.  CTBs run along
 anti-diagonals t = bx + 2*by; at each z-order sub-stage every n x n unit of
 every CTB on the diagonal (one "slot" per CTB) is tried at once by the
 fused unit trial (`ops/unit_fused.py`, on the card the CUDA kernel of
@@ -24,8 +25,12 @@ Skewed storage, as in the JAX package: the frame, the reconstruction, the
 8x8 mode map, the 8x8 cell costs and the rate state are kept as per-CTB-
 row planes with row `by` shifted right by 2*ctb*by, so a diagonal maps to
 one column window across all planes and every commit is one box write over
-the slot axis.  Slots that lie outside the frame write into margins that
-no valid read touches.  The port updates these planes IN PLACE: the JAX
+the slot axis.  A batch of NF frames is interleaved into the plane axis
+(plane `(ROW0 + by) * NF + f`, the JAX package's :271-280; not a loop
+over frames): the slot axis holds b_eff = b_max * NF (slot, frame) pairs,
+so every launch of a sub-stage carries the units of all NF frames.  Slots
+that lie outside the frame write into margins that no valid read
+touches.  The port updates these planes IN PLACE: the JAX
 package slices a per-step working window out of the reconstruction and
 writes its committed CTB column back at the end of the step; here the
 window is a view of the plane, which saves that copy and gives the same
@@ -38,13 +43,16 @@ buffer rather than quietly differing.
 
 The decided mode / level / split grids are per-step outputs ("ys"),
 assembled into grids on the host (`_assemble_arrays`), turned into CU
-trees and packed by the native CABAC packer.  Not ported yet: CTB 64,
-frame batching, halo sharding, streaming, Annex-B.
+trees and packed by the native CABAC packer.  `encode_stream_wavefront2`
+runs that host half of a batch after its device half.
+Not ported yet: CTB 64, halo sharding, Annex-B.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
+import multiprocessing
 
 import numpy as np
 import torch
@@ -269,9 +277,10 @@ def _build_wavefront2(height: int, width: int, qp: int,
     """The encoder's plan: geometry, per-size constants and LUTs (numpy).
 
     Mirrors the table-building half of the JAX package's
-    `_build_wavefront2` (`parallel/wavefront2.py:208-535`) for CTB 32, one
-    frame and no halo; every table is equal to the JAX package's.  NN
-    policies take a `PnnBundle` with quantized models."""
+    `_build_wavefront2` (`parallel/wavefront2.py:208-535`) for CTB 32 and
+    no halo; every table is equal to the JAX package's.  `n_frames` > 1
+    interleaves that many frames into the plane axis.  NN policies take a
+    `PnnBundle` with quantized models."""
     if policy not in ("regular", "substitution", "switch"):
         raise ValueError(f"unknown policy {policy!r}")
     if policy != "regular" and bundle is None:
@@ -283,8 +292,8 @@ def _build_wavefront2(height: int, width: int, qp: int,
     nn_widths = tuple(sorted(w for w in qmodels if w in NN_SIZES))
     if ctb != 32:
         raise NotImplementedError("the port covers CTB 32")
-    if n_frames != 1:
-        raise NotImplementedError("the port encodes one frame per call")
+    if n_frames < 1:
+        raise ValueError("n_frames must be at least 1")
     if height % ctb or width % ctb:
         raise ValueError(f"wavefront2 needs frame dims that are multiples "
                          f"of {ctb} (crop/pad first)")
@@ -292,7 +301,8 @@ def _build_wavefront2(height: int, width: int, qp: int,
     sbx, sby = width // ctb, height // ctb
     n_steps = (sbx - 1) + 2 * (sby - 1) + 1
     b_max = min(sby, (sbx + 1) // 2 + 1)
-    b_eff = b_max
+    NF = n_frames
+    b_eff = b_max * NF        # the (slot, frame) axis, slot-major
     # Skew geometry (JAX package :281-305).  OFF: left margin so reads two
     # planes up (x' -= 2*ctb) and 2n left stay in bounds at t=0; PH: plane
     # height with 32 pad rows; WIN: a step's working window.
@@ -300,7 +310,7 @@ def _build_wavefront2(height: int, width: int, qp: int,
     W_sk = n_steps * ctb + OFF + 32
     WIN = OFF + ctb + 32
     PH = ctb + 32
-    n_planes = ROW0 + sby + b_max - 1
+    n_planes = ROW0 + sby + b_max - 1       # per-frame by-planes
     cu8 = ctb // 8
     OFF8 = OFF // 8
     W8 = n_steps * cu8 + OFF8 + cu8
@@ -349,7 +359,7 @@ def _build_wavefront2(height: int, width: int, qp: int,
     plan = dict(height=height, width=width, qp=qp, lam=lam, ctb=ctb,
                 enable_nxn=enable_nxn, rate_evolve=rate_evolve,
                 policy=policy, nn_widths=nn_widths, n_modes=n_modes,
-                sbx=sbx, sby=sby, n_steps=n_steps,
+                n_frames=NF, sbx=sbx, sby=sby, n_steps=n_steps,
                 b_max=b_max, b_eff=b_eff, OFF=OFF, W_sk=W_sk, WIN=WIN,
                 PH=PH, n_planes=n_planes, cu8=cu8, OFF8=OFF8, W8=W8,
                 SB=SB, MODE_BITS=MODE_BITS, size_consts=size_consts)
@@ -385,13 +395,22 @@ def _schedule(sby, sbx, b_max, n_steps, t_offset=0):
     return by, bx, ok
 
 
+def _slot_schedule(plan):
+    """(by, bx) per (step, slot) on the (slot, frame) axis: each slot's
+    entry repeated n_frames times (the JAX package's `by_ids`, :864)."""
+    by, bx, _ = _schedule(plan["sby"], plan["sbx"], plan["b_max"],
+                          plan["n_steps"])
+    nf = plan["n_frames"]
+    return np.repeat(by, nf, axis=1), np.repeat(bx, nf, axis=1)
+
+
 def _substage_classes(plan, n, cmap):
-    """(n_steps, n_sub, b) int: the class (of a (1, nby, nbx) class map) of
-    the n x n unit of every step, sub-stage (in the order
-    `_z_offsets(ctb, n)` gives) and slot; slots off the frame take the
-    clipped position, as the JAX package's gathers clip."""
-    ctb, b = plan["ctb"], plan["b_eff"]
-    by, bx, _ = _schedule(plan["sby"], plan["sbx"], b, plan["n_steps"])
+    """(n_steps, n_sub, b_eff) int: the class (of a (1, nby, nbx) class
+    map) of the n x n unit of every step, sub-stage (in the order
+    `_z_offsets(ctb, n)` gives) and (slot, frame); slots off the frame take
+    the clipped position, as the JAX package's gathers clip."""
+    ctb = plan["ctb"]
+    by, bx = _slot_schedule(plan)
     un = ctb // n
     out = []
     for ly, lx in _z_offsets(ctb, n):
@@ -421,8 +440,7 @@ def _device_plan(plan, device):
                 ok=torch.from_numpy(c["nn_ok_c"][cls]).to(device),
                 am=torch.from_numpy(c["nn_am_c"][cls]).to(device),
                 lm=torch.from_numpy(c["nn_lm_c"][cls]).to(device))
-    _, bx, _ = _schedule(plan["sby"], plan["sbx"], plan["b_eff"],
-                         plan["n_steps"])
+    _, bx = _slot_schedule(plan)
     dp["bx"] = torch.from_numpy(bx.astype(np.int32)).to(device)
     dp["mode_bits"] = torch.from_numpy(plan["MODE_BITS"]).to(device)
     if plan["rate_evolve"]:
@@ -436,17 +454,17 @@ _PLAN_CACHE_MAX = 4
 
 
 def _get_plan(height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-              device, policy="regular", bundle=None):
+              device, policy="regular", bundle=None, n_frames=1):
     """The cached (plan, device plan).  The key holds every argument the
     plan reads, the bundle by identity; an entry keeps its bundle alive,
     so the identity stays valid."""
     key = (height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-           str(device), policy, id(bundle))
+           str(device), policy, id(bundle), n_frames)
     hit = _PLAN_CACHE.get(key)
     if hit is None:
         plan = _build_wavefront2(height, width, qp, lam_scale, policy=policy,
                                  bundle=bundle, ctb=ctb,
-                                 enable_nxn=enable_nxn,
+                                 enable_nxn=enable_nxn, n_frames=n_frames,
                                  rate_evolve=rate_evolve)
         hit = (plan, _device_plan(plan, device), bundle)
         _PLAN_CACHE[key] = hit
@@ -477,7 +495,8 @@ def _commit(buf, upd, p0, r0, c0, cond=None):
 
 def _new_ys(plan, device):
     """Per-step decision outputs, preallocated: shapes of the JAX
-    package's stacked scan outputs (leading axis n_steps, slot axis b)."""
+    package's stacked scan outputs (leading axis n_steps, slot axis
+    b_eff)."""
     T, b = plan["n_steps"], plan["b_eff"]
     i8, i16 = torch.int8, torch.int16
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
@@ -493,9 +512,13 @@ def _new_ys(plan, device):
 
 
 def _step(plan, dp, st, ys, t, impl):
-    """One wavefront step: the CTB-32 quadtree of every slot on diagonal t
-    (JAX package `step`, :844-1475, the `ctb == 32` branch)."""
+    """One wavefront step: the CTB-32 quadtree of every (slot, frame) on
+    diagonal t (JAX package `step`, :844-1475, the `ctb == 32` branch).
+    Plane offsets are the JAX package's: a CTB row's planes start at
+    (row) * NF, so one box of b_eff planes covers every slot of every
+    frame."""
     ctb, b, OFF, WIN = plan["ctb"], plan["b_eff"], plan["OFF"], plan["WIN"]
+    NF = plan["n_frames"]
     cu8, OFF8 = plan["cu8"], plan["OFF8"]
     lam, SB = plan["lam"], plan["SB"]
     f32c = unit_fused._f32
@@ -507,6 +530,8 @@ def _step(plan, dp, st, ys, t, impl):
     work = _box(st["recon"], 0, st["recon"].shape[0], 0, plan["PH"], ws,
                 WIN)
     by0 = max(0, -((plan["sbx"] - 1 - t) // 2))
+    p_cur = (by0 + ROW0) * NF          # this diagonal's recon / rate planes
+    p_cell = by0 * NF                  # its frame, mode8 and c8 planes
     bx_ids = dp["bx"][t]                                  # (b,)
     sub = {4: 0, 8: 0, 16: 0, 32: 0}                       # sub-stage ids
 
@@ -515,8 +540,8 @@ def _step(plan, dp, st, ys, t, impl):
         # WPP inherit: a slot entering its row (bx == 0) adopts the row
         # above's state, which at step t has coded its 2nd CTB.
         rs_sk = st["rs"]
-        above = _box(rs_sk, by0 + ROW0 - 1, b, 0, 8, 0, 16)
-        cur = _box(rs_sk, by0 + ROW0, b, 0, 8, 0, 16)
+        above = _box(rs_sk, p_cur - NF, b, 0, 8, 0, 16)
+        cur = _box(rs_sk, p_cur, b, 0, 8, 0, 16)
         inh = torch.where((bx_ids == 0)[:, None, None], above, cur)
         cur.copy_(inh)
         rs_row = inh[:, 0, :]                              # (b, 16)
@@ -540,10 +565,10 @@ def _step(plan, dp, st, ys, t, impl):
         above incl. corner and above-right, column left), then the
         per-position availability/substitution selection."""
         up = 1 if ly == 0 else 0
-        row_above = _box(work, by0 + ROW0 - up, b,
+        row_above = _box(work, p_cur - up * NF, b,
                          ctb - 1 if ly == 0 else ly - 1, 1,
                          lx - 1 - 2 * ctb * up + OFF, 2 * n + 1)[:, 0, :]
-        col_left = _box(work, by0 + ROW0, b, ly, 2 * n,
+        col_left = _box(work, p_cur, b, ly, 2 * n,
                         lx - 1 + OFF, 1)[:, :, 0]
         raw = torch.cat([row_above, col_left,
                          torch.full((b, 1), 128, dtype=i32, device=dev)],
@@ -558,12 +583,12 @@ def _step(plan, dp, st, ys, t, impl):
         m8 = st["mode8"]
         ly8 = ly // 8
         x8i = t * cu8 + lx // 8 + OFF8
-        lm_read = _box(m8, by0, b, ly8, 1, x8i - 1, 1)[:, 0, 0]
+        lm_read = _box(m8, p_cell, b, ly8, 1, x8i - 1, 1)[:, 0, 0]
         lm = torch.where(bx_ids * ctb + lx >= 8, lm_read, 1)
         # 4x4 sub-blocks whose top edge is not 8-aligned, and the CTB's
         # top row, take DC as the above mode.
         if ly >= 8 and ly % 8 == 0:
-            am = _box(m8, by0, b, ly8 - 1, 1, x8i, 1)[:, 0, 0]
+            am = _box(m8, p_cell, b, ly8 - 1, 1, x8i, 1)[:, 0, 0]
         else:
             am = torch.ones_like(lm)
         same = lm == am
@@ -594,10 +619,10 @@ def _step(plan, dp, st, ys, t, impl):
         (TComPrediction.cpp:645-663)."""
         nd = dp["nn"][n]
         up = 1 if ly == 0 else 0                 # planes up for the above
-        above_pix = _box(work, by0 + ROW0 - up, b,
+        above_pix = _box(work, p_cur - up * NF, b,
                          ctb - n if ly == 0 else ly - n, n,
                          lx - n - 2 * ctb * up + OFF, 3 * n)
-        left_pix = _box(work, by0 + ROW0, b, ly, 2 * n, lx - n + OFF, n)
+        left_pix = _box(work, p_cur, b, ly, 2 * n, lx - n + OFF, n)
         mean = f32c(nd["mean"])
         am = nd["am"][t, sub[n]]
         lm = nd["lm"][t, sub[n]]
@@ -615,7 +640,7 @@ def _step(plan, dp, st, ys, t, impl):
 
     def encode_unit_b(n, ly, lx):
         ref_top, ref_left = refs_for_b(n, ly, lx)
-        orig = _box(st["frame"], by0, b, ly, n, t * ctb + lx + OFF,
+        orig = _box(st["frame"], p_cell, b, ly, n, t * ctb + lx + OFF,
                     n).contiguous()
         mbits = mode_bits_b(ly, lx)
         # Under switch, a width without a model predicts zeros for PNNS
@@ -628,16 +653,16 @@ def _step(plan, dp, st, ys, t, impl):
         return out
 
     def commit_rec(rec, ly, lx, cond=None):
-        _commit(work, rec, by0 + ROW0, ly, lx + OFF, cond)
+        _commit(work, rec, p_cur, ly, lx + OFF, cond)
 
     def commit_cell8(buf, vals, ly, lx):
-        _commit(buf, vals[:, None, None], by0, ly // 8,
+        _commit(buf, vals[:, None, None], p_cell, ly // 8,
                 t * cu8 + lx // 8 + OFF8)
 
     def commit_mode_fill(modes, ly, lx, k, cond):
         fill = modes[:, None, None].expand(b, k, k)
-        _commit(st["mode8"], fill, by0, ly // 8, t * cu8 + lx // 8 + OFF8,
-                cond)
+        _commit(st["mode8"], fill, p_cell, ly // 8,
+                t * cu8 + lx // 8 + OFF8, cond)
 
     def zeros8():
         return torch.zeros((b, 8), dtype=i32, device=dev)
@@ -703,7 +728,7 @@ def _step(plan, dp, st, ys, t, impl):
         ly16, lx16 = qdy * 16, qdx * 16
         cost16, mode16, rec16, qq16, cn16 = encode_unit_b(16, ly16, lx16)
         # Fixed-order adds over the 2x2 cell costs.
-        csub = _box(st["c8"], by0, b, ly16 // 8, 2,
+        csub = _box(st["c8"], p_cell, b, ly16 // 8, 2,
                     t * cu8 + lx16 // 8 + OFF8, 2)
         cost8s = (((csub[:, 0, 0] + csub[:, 0, 1]) + csub[:, 1, 0])
                   + csub[:, 1, 1]) + lam_s1
@@ -754,46 +779,63 @@ def _step(plan, dp, st, ys, t, impl):
         blk = torch.cat([newrow[:, None, :],
                          torch.zeros((b, 7, 16), dtype=i32, device=dev)],
                         dim=1)
-        _commit(rs_sk, blk, by0 + ROW0, 0, 0)
+        _commit(rs_sk, blk, p_cur, 0, 0)
 
 
-def run(plan, dp, frame_u8, impl="kernel"):
-    """The device half of the encode: returns (recon (H, W) uint8 numpy,
-    ys dict of numpy per-step decisions)."""
+def run(plan, dp, frames_u8, impl="kernel"):
+    """The device half of the encode: returns (recon (n_frames, H, W)
+    uint8 numpy, ys dict of numpy per-step decisions, slot axis b_eff
+    ordered (slot, frame)) of `frames_u8` (n_frames, H, W) (JAX package
+    :1477-1522)."""
     dev = dp["mode_bits"].device
     ctb, OFF, W_sk = plan["ctb"], plan["OFF"], plan["W_sk"]
-    sby, b_max = plan["sby"], plan["b_max"]
+    sby, b_max, NF = plan["sby"], plan["b_max"], plan["n_frames"]
     height, width = plan["height"], plan["width"]
     i32 = torch.int32
-    frame = torch.as_tensor(np.ascontiguousarray(frame_u8)).to(
+    frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(
         device=dev, dtype=i32)
-    if tuple(frame.shape) != (height, width):
-        raise ValueError(f"frame {tuple(frame.shape)} != plan "
-                         f"{(height, width)}")
-    frame_sk = torch.zeros((sby + b_max - 1, ctb, W_sk), dtype=i32,
+    if tuple(frames.shape) != (NF, height, width):
+        raise ValueError(f"frames {tuple(frames.shape)} != plan "
+                         f"{(NF, height, width)}")
+    frame_sk = torch.zeros(((sby + b_max - 1) * NF, ctb, W_sk), dtype=i32,
                            device=dev)
     for by in range(sby):
         x0 = OFF + 2 * ctb * by
-        frame_sk[by, :, x0:x0 + width] = frame[by * ctb:(by + 1) * ctb]
+        frame_sk[by * NF:(by + 1) * NF, :, x0:x0 + width] = \
+            frames[:, by * ctb:(by + 1) * ctb]
     st = dict(
         frame=frame_sk,
-        recon=torch.zeros((plan["n_planes"], plan["PH"], W_sk), dtype=i32,
-                          device=dev),
-        mode8=torch.ones((sby + b_max - 1, plan["cu8"], plan["W8"]),
+        recon=torch.zeros((plan["n_planes"] * NF, plan["PH"], W_sk),
+                          dtype=i32, device=dev),
+        mode8=torch.ones(((sby + b_max - 1) * NF, plan["cu8"], plan["W8"]),
                          dtype=i32, device=dev),
-        c8=torch.zeros((sby + b_max - 1, plan["cu8"], plan["W8"]),
+        c8=torch.zeros(((sby + b_max - 1) * NF, plan["cu8"], plan["W8"]),
                        dtype=torch.float32, device=dev))
     if plan["rate_evolve"]:
-        st["rs"] = torch.zeros((plan["n_planes"], 8, 16), dtype=i32,
+        st["rs"] = torch.zeros((plan["n_planes"] * NF, 8, 16), dtype=i32,
                                device=dev)
     ys = _new_ys(plan, dev)
     for t in range(plan["n_steps"]):
         _step(plan, dp, st, ys, t, impl)
-    recon = torch.cat([
-        st["recon"][ROW0 + by, :ctb, OFF + 2 * ctb * by:
-                    OFF + 2 * ctb * by + width] for by in range(sby)], 0)
-    return (recon.to(torch.uint8).cpu().numpy(),
-            {k: v.cpu().numpy() for k, v in ys.items()})
+    recon = torch.stack([torch.cat([
+        st["recon"][(ROW0 + by) * NF + f, :ctb,
+                    OFF + 2 * ctb * by:OFF + 2 * ctb * by + width]
+        for by in range(sby)], 0) for f in range(NF)]).to(torch.uint8)
+    return recon.cpu().numpy(), {k: v.cpu().numpy() for k, v in ys.items()}
+
+
+def _frame_ys(ys, n_frames, f):
+    """Frame f's per-step decisions of a batched run: the (slot, frame)
+    axis is slot-major, at -3 for the level arrays (`q*`, trailing (n, n)
+    blocks) and -1 for the others (JAX package :1813-1824)."""
+    if n_frames == 1:
+        return ys
+    out = {}
+    for k, v in ys.items():
+        axis = -3 if k.startswith("q") else -1
+        out[k] = np.take(v, np.arange(v.shape[axis] // n_frames) * n_frames
+                         + f, axis=axis)
+    return out
 
 
 def _assemble_arrays(ys, height, width, ctb=CTB, t_offset=0):
@@ -953,13 +995,30 @@ def encode_arrays_wavefront2(frame_uint8: np.ndarray, qp: int, *,
     (H, W) uint8, grids), grids being `_assemble_arrays`' tuple.
     `impl="plain"` runs the plain versions of the kernels on the card (for
     comparing)."""
+    return encode_arrays_wavefront2_batch(
+        np.asarray(frame_uint8)[None], qp, lam_scale=lam_scale,
+        policy=policy, pnn=pnn, ctb=ctb, enable_nxn=enable_nxn,
+        rate_evolve=rate_evolve, device=device, impl=impl)[0]
+
+
+def encode_arrays_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
+                                   lam_scale: float = 1.0,
+                                   policy: str = "regular", pnn=None,
+                                   ctb: int = CTB, enable_nxn: bool = True,
+                                   rate_evolve: bool = False, device="cuda",
+                                   impl: str = "kernel"):
+    """The device half of `encode_frames_wavefront2_batch`: the (B, H, W)
+    frames through one B-frame plan; returns one (recon (H, W) uint8,
+    grids) per frame."""
     device = _prepare_device(device)
     bundle = getattr(pnn, "bundle", pnn)
-    h, w = frame_uint8.shape
+    frames = np.asarray(frames_uint8)
+    nf, h, w = frames.shape
     plan, dp = _get_plan(h, w, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-                         device, policy=policy, bundle=bundle)
-    recon, ys = run(plan, dp, frame_uint8, impl=impl)
-    return recon, _assemble_arrays(ys, h, w, ctb)
+                         device, policy=policy, bundle=bundle, n_frames=nf)
+    recon, ys = run(plan, dp, frames, impl=impl)
+    return [(recon[f], _assemble_arrays(_frame_ys(ys, nf, f), h, w, ctb))
+            for f in range(nf)]
 
 
 def encode_frame_wavefront2(frame_uint8: np.ndarray, qp: int, *,
@@ -971,7 +1030,7 @@ def encode_frame_wavefront2(frame_uint8: np.ndarray, qp: int, *,
 
     `policy` in {regular, substitution, switch}; the NN policies take `pnn`,
     a `codec.nn_intra.PnnBundle` with quantized models (or an object with
-    such a `.bundle`).  The port covers CTB 32, one frame per call.
+    such a `.bundle`).  The port covers CTB 32.
     `rate_evolve` turns on the live rate-state evolution (the JAX
     package reads its default from `CANP_RATE_EVOLVE`; the port takes it
     as an argument only).  Runs on `device` ("cuda" by default; "cpu"
@@ -982,3 +1041,100 @@ def encode_frame_wavefront2(frame_uint8: np.ndarray, qp: int, *,
         device=device)
     return _arrays_to_result(frame_uint8, qp, (recon,) + grids, policy,
                              serialize, ctb=ctb)
+
+
+def encode_frames_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
+                                   lam_scale: float = 1.0,
+                                   policy: str = "regular", pnn=None,
+                                   serialize: bool = False, ctb: int = CTB,
+                                   enable_nxn: bool = True,
+                                   rate_evolve: bool = False, device="cuda"):
+    """Encodes a batch of frames (B, H, W) through one B-frame wavefront
+    plan (JAX package :1786-1832): the frames are interleaved into the
+    plane axis, so every launch of a sub-stage carries B frames' units at
+    the same sequential depth.  Each frame's result equals its own
+    `encode_frame_wavefront2`.  Returns a list of `EncodeResult`
+    (bitstreams empty unless `serialize`)."""
+    frames = np.asarray(frames_uint8)
+    out = encode_arrays_wavefront2_batch(
+        frames, qp, lam_scale=lam_scale, policy=policy, pnn=pnn, ctb=ctb,
+        enable_nxn=enable_nxn, rate_evolve=rate_evolve, device=device)
+    return [_arrays_to_result(frames[f], qp, (recon,) + grids, policy,
+                              serialize, ctb=ctb)
+            for f, (recon, grids) in enumerate(out)]
+
+
+def _host_pack_one(args):
+    """Process-pool worker: one frame's grid assembly and native CABAC pack
+    (module level, so it pickles).  Returns the stream's bytes."""
+    ys_f, h, w, qp, policy, ctb = args
+    grids = _assemble_arrays(ys_f, h, w, ctb)
+    return _serialize_grids(grids, width=w, height=h, qp=qp, policy=policy,
+                            ctb=ctb)
+
+
+def encode_stream_wavefront2(frames_iter, qp: int, *, batch: int = 16,
+                             lam_scale: float = 1.0, policy: str = "regular",
+                             pnn=None, ctb: int = CTB,
+                             enable_nxn: bool = True,
+                             rate_evolve: bool = False,
+                             build_trees: bool = False, workers: int = 0,
+                             device="cuda"):
+    """Sustained encoder over a stream of (H, W) frames, `batch` frames a
+    device run (JAX package :1835-1949).  Yields `EncodeResult`s in input
+    order, bitstreams always filled (`ctu_trees` and `mode_map` only with
+    `build_trees`; the packer reads the grids directly).  A last partial
+    batch is padded with copies of its last frame; only its own frames'
+    results come out.
+
+    The host half of a batch (per-frame assembly and the native pack)
+    runs inline after its device half: the step loop is issued from
+    Python, and on the card a worker thread for it was not faster.
+    `workers` > 0 fans the per-frame assembly and pack over a `spawn`
+    process pool, which is shut down when the generator ends or is
+    closed."""
+    device = _prepare_device(device)
+    bundle = getattr(pnn, "bundle", pnn)
+    pool = None
+    if workers > 0 and not build_trees:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"))
+
+    def encode_batch(frames, n_valid):
+        h, w = frames.shape[1:]
+        plan, dp = _get_plan(h, w, qp, lam_scale, ctb, enable_nxn,
+                             rate_evolve, device, policy=policy,
+                             bundle=bundle, n_frames=batch)
+        recon, ys = run(plan, dp, frames)
+        per_frame = [_frame_ys(ys, batch, f) for f in range(n_valid)]
+        if build_trees:
+            return [_arrays_to_result(
+                frames[f], qp, (recon[f],) + _assemble_arrays(
+                    per_frame[f], h, w, ctb), policy, True, ctb=ctb)
+                for f in range(n_valid)]
+        args = [(ys_f, h, w, qp, policy, ctb) for ys_f in per_frame]
+        streams = (pool.map(_host_pack_one, args) if pool is not None
+                   else map(_host_pack_one, args))
+        return [enc_mod.EncodeResult(
+            bitstream=stream, reconstruction=recon[f],
+            num_bits=len(stream) * 8, ctu_trees=None, mode_map=None,
+            qp=qp, policy=policy) for f, stream in enumerate(streams)]
+
+    buf = []
+    try:
+        for frame in frames_iter:
+            frame = np.asarray(frame)
+            if buf and frame.shape != buf[0].shape:
+                raise ValueError(f"frame {frame.shape} != {buf[0].shape}")
+            buf.append(frame)
+            if len(buf) == batch:
+                yield from encode_batch(np.stack(buf), batch)
+                buf = []
+        if buf:
+            n_valid = len(buf)
+            yield from encode_batch(
+                np.stack(buf + [buf[-1]] * (batch - n_valid)), n_valid)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)

@@ -12,7 +12,10 @@ captured from the JAX package.  The float PNN's kernels (the FC layers and
 the float merger) are held against their plain versions by tolerance, at
 the edges of the FC kernel's tiles and K splits and of the merger's slot
 chunks, two calls on the same inputs giving the same bits; and the float
-prediction path against `tests/golden_torch/float_pnn.*`.
+prediction path against `tests/golden_torch/float_pnn.*`.  Batched
+plans: the trial and the merger at 124 and 496 slots, 2-frame batches
+and the streaming encoder equal to single-frame encodes, and the port's
+decoder on the card.
 Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -354,6 +357,82 @@ def test_kernel_nn_encode_matches_jax_digests(dev, key):
     assert sha(res.bitstream) == want["stream"]
     for g, k in zip(grids, GRIDS):
         assert sha(np.ascontiguousarray(g, np.int32).tobytes()) == want[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("b", [124, 496])
+@pytest.mark.parametrize("policy", [None, "append"])
+def test_fused_trial_batched_slots(dev, n, b, policy):
+    """The trial at the slot counts of batched plans (1080p: 31 slots x 4
+    frames, x 16 frames): one launch, equal to the plain trial."""
+    tc, (rt, rl, og, mb, rr, nnp) = small_trial_case(dev, n, b, 32, policy)
+    pred = nnp if policy else None
+    before = unit_fused.launches[n]
+    got = unit_fused.trial_apply(tc, rt, rl, og, mb, rr, nn_pred=pred)
+    want = unit_fused.trial_apply(tc, rt, rl, og, mb, rr, impl="plain",
+                                  nn_pred=pred)
+    torch.cuda.synchronize()
+    assert unit_fused.launches[n] == before + 1
+    for field, x, y in zip(FIELDS, got, want):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [32, 64, 128, 256])
+@pytest.mark.parametrize("n", [124, 496])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_merger_kernel_batched_slots(dev, m, n, extreme):
+    x, w, b = [torch.from_numpy(a).to(dev)
+               for a in merger_inputs(m, n, 11 * m + n, extreme)]
+    got = merger_int.merger_int_forward(x, w, b)
+    want = merger_int.merger_int_forward(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["regular", "switch", "substitution"])
+def test_kernel_batch_equals_single_frames_and_decodes(dev, policy):
+    """A 2-frame batch (the natural crop and its left-right flip) through
+    the kernel path: each frame equal to its single-frame kernel encode;
+    the port's decoder on the card turns each stream back into its
+    reconstruction (frozen singles zoo, QP 32, rate evolution on)."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import decoder
+
+    frame = nn_frame("natural128")
+    frames = np.stack([frame, np.ascontiguousarray(frame[:, ::-1])])
+    pnn = nn_bundles()["frozen_singles"] if policy != "regular" else None
+    batch = wavefront2.encode_frames_wavefront2_batch(
+        frames, 32, policy=policy, pnn=pnn, serialize=True,
+        rate_evolve=True, device=dev)
+    for f, got in zip(frames, batch):
+        want = wavefront2.encode_frame_wavefront2(
+            f, 32, policy=policy, pnn=pnn, rate_evolve=True, device=dev)
+        assert got.bitstream == want.bitstream
+        np.testing.assert_array_equal(got.reconstruction,
+                                      want.reconstruction)
+        dec = decoder.decode_frame(got.bitstream, pnn=pnn, device=dev)
+        np.testing.assert_array_equal(dec.reconstruction,
+                                      got.reconstruction)
+
+
+@pytest.mark.cuda
+def test_stream_on_card_equals_single_frames(dev):
+    frame = nn_frame("synth64x96")
+    frames = [frame, frame[::-1].copy(), np.roll(frame, 32, axis=1)]
+    got = list(wavefront2.encode_stream_wavefront2(
+        iter(frames), 32, batch=2, rate_evolve=True, device=dev))
+    assert len(got) == 3
+    for f, res in zip(frames, got):
+        want = wavefront2.encode_frame_wavefront2(f, 32, rate_evolve=True,
+                                                  device=dev)
+        assert res.bitstream == want.bitstream
+        np.testing.assert_array_equal(res.reconstruction,
+                                      want.reconstruction)
 
 
 # ---------------------------------------------------- float PNN kernels ----

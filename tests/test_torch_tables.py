@@ -252,3 +252,69 @@ def test_schedule():
         for a, b in zip(j_wavefront2._schedule(*args),
                         t_wavefront2._schedule(*args)):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def batched_tables():
+    """The JAX package's encoder built for 2 frames (96x128, QP 32, CTB
+    32, NxN, switch with the frozen singles zoo; built, not compiled) and
+    the port's plan and device plan (CPU) for the same."""
+    quantized = {w: j_pnn_q.load_quantized(os.path.join(
+        FROZEN, f"qpnn_w{w}_single.npz")) for w in (4, 8, 16, 32)}
+    j_bundle = j_nn_intra.PnnBundle(
+        {}, {w: str(q["kind"]) == "fc" for w, q in quantized.items()},
+        86.85680942771248, quantized=quantized)
+    t_bundle = t_nn_intra.PnnBundle(dict(quantized), 86.85680942771248)
+    run = j_wavefront2._build_wavefront2(
+        96, 128, 32, 1.0, "switch", j_bundle, ctb=32, enable_nxn=True,
+        n_frames=2, rate_evolve=False)
+    step = closure_vars(run.__wrapped__)["step"]
+    plan = t_wavefront2._build_wavefront2(96, 128, 32, policy="switch",
+                                          bundle=t_bundle, n_frames=2)
+    return closure_vars(step), plan, t_wavefront2._device_plan(plan, "cpu")
+
+
+def jax_slot_ids(jax_vars, t):
+    """The JAX step's (by_ids, bx_ids) on the (slot, frame) axis at step t
+    (`parallel/wavefront2.py:861-866`)."""
+    nf, b_max, sbx = jax_vars["NF"], jax_vars["b_max"], jax_vars["sbx"]
+    by0 = max(0, -((sbx - 1 - t) // 2))
+    by_ids = by0 + np.repeat(np.arange(b_max), nf)
+    return by_ids, t - 2 * by_ids
+
+
+@pytest.mark.parametrize("name", ["NF", "b_eff", "b_max", "n_planes", "W_sk",
+                                  "OFF", "PH"])
+def test_batched_plan_scalars(batched_tables, name):
+    jax_vars, plan, _ = batched_tables
+    assert_same(jax_vars[name], plan["n_frames" if name == "NF" else name],
+                name)
+    assert plan["b_eff"] == 2 * plan["b_max"]
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_batched_per_slot_tables(batched_tables, n):
+    """Every per-(slot, frame) table of the port's batched plan (reference
+    selection, PNN context availability and masks, bx) equals what the JAX
+    step gathers from its class maps (`refs_for_b` :894-897,
+    `nn_predict_b` :976-982): each slot's entry repeated per frame."""
+    jax_vars, plan, dp = batched_tables
+    c = jax_vars["size_consts"][n]
+    h, w, ctb = 96, 128, 32
+    un = ctb // n
+    for t in range(plan["n_steps"]):
+        by_ids, bx_ids = jax_slot_ids(jax_vars, t)
+        np.testing.assert_array_equal(dp["bx"][t].numpy(), bx_ids)
+        for k, (ly, lx) in enumerate(t_wavefront2._z_offsets(ctb, n)):
+            by_n = np.clip(by_ids * un + ly // n, 0, h // n - 1)
+            bx_n = np.clip(bx_ids * un + lx // n, 0, w // n - 1)
+            sel = c["onehot"][c["smap"][0, by_n, bx_n]].argmax(-1)
+            np.testing.assert_array_equal(dp["sel"][n][t, k].numpy(), sel)
+            cls = c["nn_cmap"][0, by_n, bx_n]
+            nd = dp["nn"][n]
+            np.testing.assert_array_equal(nd["ok"][t, k].numpy(),
+                                          c["nn_ok_c"][cls])
+            np.testing.assert_array_equal(nd["am"][t, k].numpy(),
+                                          c["nn_am_c"][cls])
+            np.testing.assert_array_equal(nd["lm"][t, k].numpy(),
+                                          c["nn_lm_c"][cls])

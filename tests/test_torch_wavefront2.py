@@ -240,10 +240,10 @@ def test_box_refuses_to_clamp():
 
 
 @pytest.mark.parametrize("kwargs", [dict(policy="switch"), dict(ctb=64),
-                                    dict(n_frames=4)])
+                                    dict(ctb=64, n_frames=2)])
 def test_unported_configs_raise(kwargs):
-    """CTB 64 and frame batching are not ported; an NN policy without a
-    PNN bundle is refused, as the JAX package refuses it."""
+    """CTB 64 is not ported, batched or not; an NN policy without a PNN
+    bundle is refused, as the JAX package refuses it."""
     want = ValueError if "policy" in kwargs else NotImplementedError
     with pytest.raises(want):
         t_wavefront2._build_wavefront2(64, 128, QP, **kwargs)
