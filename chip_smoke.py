@@ -9,7 +9,10 @@ the frozen singles zoo (`artifacts/frozen/qpnn_w{4,8,16,32}_single.npz`,
 no pair models, mean 86.8568 of
 `artifacts/training_set/luminance/means/mean_training.pkl` for every
 width), one frame per call and four (frame batching), the streaming
-encoder, and the port's decoder on those streams; and the float PNN
+encoder, and the port's decoder on those streams; the CTB-64 encoder (HM's
+intra_main_rext geometry) on the frame's top 1024 rows, and the Annex-B
+output with deblocking and SAO (`encode_frame_wavefront2_hm`) at CTB 64
+and 32, each stream decoded by stock HM-16.15; and the float PNN
 prediction path (Tables I-V,
 `evaluation/prediction_comparison.compare_on_channels`) on the 1080p
 frame's luma with the six float singles of the chip copy.  It holds each
@@ -38,7 +41,9 @@ printing one line with its seconds:
   3  the small reference frames (64x96 synthetic, 128x128 natural) through
      the kernel path, regular (tests/golden_torch/w2_rate_evolve.json) and
      NN policies (tests/golden_torch/w2_nn.json), against the digests
-     captured from the JAX package
+     captured from the JAX package; and at CTB 64 (rate evolution off) the
+     smooth 64x128 and the natural 128x128 frame under regular, switch and
+     substitution, one frame a call (tests/golden_torch/w2_ctb64.json)
   4  the 1080p regular encode through the kernel path: device and pack
      seconds, PSNR, bits, and trial launches per unit size, which must
      equal the trial calls of the step loop
@@ -68,6 +73,20 @@ printing one line with its seconds:
      and phase-11 frame-1 switch streams back to the encoder's
      reconstruction; seconds, and merger launches, which must equal the
      decoder's PNN forwards of conv models
+ 14  `encode_frame_wavefront2(ctb=64)`, regular, on the frame's top
+     1024x1920 (16 x 30 CTBs, 60 steps, 16 slots), QP 32, rate evolution
+     off: device and pack seconds, PSNR, bits, the 64x64 candidate's time
+     per step (host, and CUDA events around it), trial launches per unit
+     size, which must equal the step loop's calls (60 steps x 4
+     quadrants); the port's decoder gives the reconstruction back from
+     the stream
+ 15  `encode_frame_wavefront2_hm`, regular, loop filters on, at CTB 64 on
+     the same 1024x1920 frame and at CTB 32 on phase 5's 544x960 crop
+     with rate evolution on (phase 4's configuration; the mode map must be
+     phase 5's): device, deblock, SAO-estimate, SAO-apply and HM-serialise
+     seconds; stock HM (`artifacts/hm_bin/TAppDecoderStatic -b ... -o
+     ...`) decodes each stream, confirms its picture hash ("(OK)") and
+     writes the port's reconstruction
   9  (runs before 8) the float prediction path on the card, per float
      single (w4/w8 FC, w4/w8 refconv, w16, w32): the forward on the
      natural frame's seeded contexts and the bf16 kernels against the JAX
@@ -79,7 +98,8 @@ printing one line with its seconds:
      kernel launches, which must equal the forwards' chunk calls
   8  per kernel, on phase-4, phase-6 and phase-9 inputs, and on the batched
      paths' (the trial at 124 slots from phase 10, the merger at N = 124
-     from phase 11 and at N = 1 from phase 13's decode): launches, max abs
+     from phase 11 and at N = 1 from phase 13's decode) and CTB 64's (the
+     trial at 16 slots from phase 14): launches, max abs
      error, ms per call (CUDA events, calls queued back to back; where
      there is a library call, the kernel and it timed in turns, kernel,
      library, library, kernel, ...; and the same queued behind a spin of
@@ -103,8 +123,8 @@ printing one line with its seconds:
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero.  It imports
-nothing of JAX and starts no process other than the compilers and
-nvidia-smi.
+nothing of JAX and starts no process other than the compilers,
+nvidia-smi and HM's decoder (`artifacts/hm_bin/TAppDecoderStatic`).
 """
 
 from __future__ import annotations
@@ -125,6 +145,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 QP = 32
 H, W = 1056, 1920
 CROP = (544, 960)       # the regular path's plain comparison (phase 5)
+H64 = 1024              # CTB 64 needs rows in whole CTBs: the top 1024
 UNIT_SUBSTAGES = {4: 64, 8: 16, 16: 4, 32: 1}     # trials per step per n
 REPLACES = {
     4: "context_adaptive_neural_network_based_prediction_tpu/ops/"
@@ -168,7 +189,8 @@ F32_OPS = 67e12
 TF32_OPS = 495e12
 BF16_OPS = 989e12
 GRID_NAMES = ("m8", "q8", "s8", "m4", "q4", "m16", "q16", "s16", "m32",
-              "q32", "s32")
+              "q32", "s32", "m64", "q64", "s64")
+HM_DECODER = os.path.join(REPO, "artifacts", "hm_bin", "TAppDecoderStatic")
 # The kernel of one trial call, by unit size (profiler names).
 TRIAL_KERNELS = {4: ("trial_small_kernel",), 8: ("trial_small_kernel",),
                  16: ("trial_large_kernel",), 32: ("trial_large_kernel",)}
@@ -210,6 +232,34 @@ def golden_frames():
     natural = np.load(os.path.join(REPO, "tests", "golden_hm",
                                    "128_full_q32_src.npy"))
     return {"synth64x96": synth, "natural128": natural}
+
+
+def ctb64_frames():
+    """The two frames of tests/golden_torch/w2_ctb64.json."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:64, 0:128]
+    smooth = np.clip(128 + 40 * np.sin(xx / 37.0) + 30 * np.cos(yy / 41.0)
+                     + rng.normal(0, 3, (64, 128)), 0, 255).astype(np.uint8)
+    natural = np.load(os.path.join(REPO, "tests", "golden_hm",
+                                   "128_full_q32_src.npy"))
+    return {"smooth64x128": smooth, "natural128": natural}
+
+
+def hm_decode(stream, h, w, tmp):
+    """Stock HM-16.15's decode of an Annex-B stream: (its stdout, the
+    decoded 8-bit luma (h, w))."""
+    bs, yuv = os.path.join(tmp, "hm.bin"), os.path.join(tmp, "hm.yuv")
+    with open(bs, "wb") as f:
+        f.write(stream)
+    proc = subprocess.run([HM_DECODER, "-b", bs, "-o", yuv, "-d", "8"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"TAppDecoderStatic exited {proc.returncode}: "
+                             f"{proc.stdout[-500:]} {proc.stderr[-500:]}")
+    luma = np.fromfile(yuv, np.uint8)
+    if luma.size != h * w:
+        raise AssertionError(f"HM wrote {luma.size} samples, want {h * w}")
+    return proc.stdout, luma.reshape(h, w)
 
 
 def sha(a):
@@ -562,6 +612,44 @@ def main():
             say(f"{key} (QP {want['qp']}): recon, 11 grids and stream match "
                 f"the JAX package's digests ({len(res.bitstream)} bytes, "
                 f"{got['pnn_pus']} PNN-coded PUs)")
+        # CTB 64, rate evolution off, one frame a call (the batches of two
+        # are held on the CPU, tests/test_torch_wavefront2_ctb64*.py, to
+        # keep the smoke inside its time).
+        with open(os.path.join(REPO, "tests", "golden_torch",
+                               "w2_ctb64.json")) as f:
+            golden64 = json.load(f)["encodes"]
+        frames64 = ctb64_frames()
+        for fname, policy, nf in sorted({
+                (e["frame"], e["policy"], e["n_frames"])
+                for e in golden64.values() if e["n_frames"] == 1}):
+            e0 = golden64[f"{fname}/{policy}/b{nf}/0"]
+            batch = np.stack([frames64[fname],
+                              frames64[fname][:, ::-1]])[:nf]
+            pnn = None if policy == "regular" else bundles[e0["bundle"]]
+            unit_fused.reset_launch_counts()
+            merger_int.reset_launch_counts()
+            out = wavefront2.encode_arrays_wavefront2_batch(
+                batch, e0["qp"], policy=policy, pnn=pnn, ctb=64, device=dev)
+            n_trials = sum(unit_fused.launches.values())
+            n_mergers = sum(merger_int.launches.values())
+            for f, (recon, grids) in enumerate(out):
+                key = f"{fname}/{policy}/b{nf}/{f}"
+                res = wavefront2._arrays_to_result(
+                    batch[f], e0["qp"], (recon,) + grids, policy, True,
+                    ctb=64)
+                got = digest_items(recon, grids, res.bitstream)
+                bad = [k for k in got if got[k] != golden64[key][k]]
+                if bad or not n_trials or (pnn is not None
+                                           and not n_mergers):
+                    raise AssertionError(
+                        f"CTB 64 {key}: differs from the JAX package's "
+                        f"digests in {bad} (trial launches {n_trials}, "
+                        f"merger launches {n_mergers})")
+                say(f"CTB 64 {key} (QP {e0['qp']}): recon, 14 grids and "
+                    f"stream match the JAX package's digests "
+                    f"({len(res.bitstream)} bytes, "
+                    f"{int(np.sum(grids[13] == 0))} 64x64 leaves; trial "
+                    f"launches {n_trials}, merger launches {n_mergers})")
 
     # ---- phases 4-7: the 1080p paths ----
     frame = bench_frame()
@@ -573,7 +661,8 @@ def main():
         # path passes no PNN prediction.
         key = (tc["n"], args[0].shape[0])
         if key not in captured and args[5] is None:
-            captured[key] = (tc, [a.clone() for a in args[:5]])
+            captured[key] = (tc, [None if a is None else a.clone()
+                                  for a in args[:5]])
         return orig_trial(tc, *args)
 
     def capture_merger(x, w, bb):     # one input set per (M, N)
@@ -855,6 +944,138 @@ def main():
                 f"encoder's; PNN forwards conv {conv}, fc {fc}; merger "
                 f"launches {got}")
 
+    # ---- phases 14-15: CTB 64 and the Annex-B output ----
+    frame64 = np.ascontiguousarray(frame[:H64])
+    with Phase("14 CTB 64"):
+        t0 = time.perf_counter()
+        plan64, _ = wavefront2._get_plan(H64, W, QP, 1.0, 64, True, False,
+                                         dev)
+        say(f"{H64}x{W} CTB-64 plan: {time.perf_counter() - t0:.2f} s")
+        want64 = {n: plan64["n_steps"] * 4 * k
+                  for n, k in UNIT_SUBSTAGES.items()}
+        orig_cand = wavefront2._candidate64
+        cand_host, cand_events = [], []
+
+        def timed_cand(*args):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            t = time.perf_counter()
+            ev[0].record()
+            out = orig_cand(*args)
+            ev[1].record()
+            cand_host.append(time.perf_counter() - t)
+            cand_events.append(ev)
+            return out
+
+        torch.cuda.synchronize()
+        unit_fused.reset_launch_counts()
+        unit_fused._kernel_trial = capture_trial
+        wavefront2._candidate64 = timed_cand
+        t0 = time.perf_counter()
+        try:
+            recon64, grids64 = wavefront2.encode_arrays_wavefront2(
+                frame64, QP, ctb=64, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            unit_fused._kernel_trial = orig_trial
+            wavefront2._candidate64 = orig_cand
+        t_dev64 = time.perf_counter() - t0
+        launches64 = dict(unit_fused.launches)
+        t0 = time.perf_counter()
+        res64 = wavefront2._arrays_to_result(frame64, QP, (recon64,)
+                                             + grids64, "regular", True,
+                                             ctb=64)
+        t_pack64 = time.perf_counter() - t0
+        psnr64 = 10 * np.log10(255.0 ** 2 / np.mean(
+            (recon64.astype(np.float64) - frame64) ** 2))
+        cand_ms = [a.elapsed_time(b) for a, b in cand_events]
+        if len(cand_ms) != plan64["n_steps"] or not 20 < psnr64 < 60:
+            raise AssertionError(f"CTB 64: {len(cand_ms)} candidate calls, "
+                                 f"PSNR {psnr64}")
+        say(f"{H64}x{W} CTB-64 regular kernel path: device half "
+            f"{t_dev64:.3f} s, pack {t_pack64:.3f} s, PSNR {psnr64:.4f} dB,"
+            f" {res64.num_bits} bits, {int(np.sum(grids64[13] == 0))} "
+            f"64x64 leaves of {grids64[13].size}; 64x64 candidate "
+            f"{1e3 * sum(cand_host) / len(cand_host):.3f} ms a step on the "
+            f"host, {sum(cand_ms) / len(cand_ms):.3f} ms a step between "
+            f"its CUDA events ({sum(cand_ms) / 1e3:.3f} s of "
+            f"{len(cand_ms)} steps); trial launches {launches64} (step "
+            f"loop trial calls {want64}); {smi}")
+        if launches64 != want64:
+            raise AssertionError("CTB 64: trial launches != trial calls")
+        t0 = time.perf_counter()
+        dec64 = decoder.decode_frame(res64.bitstream, device=dev)
+        if not np.array_equal(dec64.reconstruction, recon64):
+            raise AssertionError("CTB 64: decode != the encoder's "
+                                 "reconstruction")
+        say(f"decode of the CTB-64 stream: {time.perf_counter() - t0:.3f} "
+            f"s, reconstruction identical to the encoder's")
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import deblock, hm_encoder, sao
+    with Phase("15 Annex-B + stock HM"), \
+            tempfile.TemporaryDirectory() as tmp:
+        # The CTB-32 run is phase 5's 544x960 crop (phase 4's
+        # configuration), to keep the smoke inside its time.
+        for what, fr, ctb, rate_evolve, want_modes in (
+                (f"{H64}x{W} CTB 64", frame64, 64, False, None),
+                (f"{CROP[0]}x{CROP[1]} CTB 32, rate evolution on", crop, 32,
+                 True, crop_k[2].mode_map)):
+            # The plan is built outside the timed device half, as in
+            # phase 4.
+            wavefront2._get_plan(*fr.shape, QP, 1.0, ctb, True, rate_evolve,
+                                 dev)
+            # Each part's seconds, timed around the functions the entry
+            # point calls.
+            clock = {}
+            parts = ((wavefront2, "encode_arrays_wavefront2", "device"),
+                     (deblock, "deblock_luma", "deblock"),
+                     (sao, "estimate_frame", "sao_estimate"),
+                     (sao, "apply_sao", "sao_apply"),
+                     (hm_encoder, "assemble_hm_stream", "hm_serialise"))
+            originals = [getattr(mod, attr) for mod, attr, _ in parts]
+
+            def clocked(fn, key):
+                def call(*args, **kwargs):
+                    t = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    clock[key] = time.perf_counter() - t
+                    return out
+                return call
+
+            for (mod, attr, key), fn in zip(parts, originals):
+                setattr(mod, attr, clocked(fn, key))
+            t0 = time.perf_counter()
+            try:
+                annexb, res_hm = wavefront2.encode_frame_wavefront2_hm(
+                    fr, QP, ctb=ctb, rate_evolve=rate_evolve, device=dev)
+            finally:
+                for (mod, attr, _), fn in zip(parts, originals):
+                    setattr(mod, attr, fn)
+            t_all = time.perf_counter() - t0
+            if set(clock) != {key for _, _, key in parts}:
+                raise AssertionError(f"Annex-B parts not all run: {clock}")
+            if want_modes is not None and not np.array_equal(
+                    res_hm.mode_map, want_modes):
+                raise AssertionError("CTB-32 Annex-B encode: mode map != "
+                                     "phase 5's")
+            t0 = time.perf_counter()
+            out, luma = hm_decode(annexb, *fr.shape, tmp)
+            t_hm = time.perf_counter() - t0
+            if "(OK)" not in out or not np.array_equal(
+                    luma, res_hm.reconstruction):
+                raise AssertionError(f"{what}: stock HM's decode differs "
+                                     f"or its hash check failed: {out}")
+            psnr_hm = 10 * np.log10(255.0 ** 2 / np.mean(
+                (res_hm.reconstruction.astype(np.float64) - fr) ** 2))
+            say(f"{what} Annex-B (deblocking + SAO): {t_all:.3f} s; "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in clock.items())
+                + f"; {len(annexb) * 8} bits, PSNR {psnr_hm:.4f} dB; stock "
+                f"HM decoded it in {t_hm:.3f} s, hash (OK), reconstruction "
+                f"identical" + ("; mode map identical to phase 5's kernel "
+                                "path" if want_modes is not None else "")
+                + f"; {smi}")
+
     # ---- phase 9 (before 8): the float prediction path ----
     from context_adaptive_neural_network_based_prediction_tpu_torch \
         .evaluation import float_golden, prediction_comparison
@@ -1000,6 +1221,10 @@ def main():
         for n, m in NN_MAPS.items():
             merger_row(f"merger_int_m{m}_n{4 * b1}", m, 4 * b1,
                        sw4_mergers[m], "phase-11")
+        # CTB 64 (phase 14): the trial at 16 slots.
+        for n in (4, 8, 16, 32):
+            trial_row(f"unit_trial_n{n}_ctb64", n, plan64["b_eff"],
+                      launches64[n], "phase-14")
         for m in NN_MAPS.values():
             if ("merger", m, 1) in captured:
                 merger_row(f"merger_int_m{m}_n1_decoder", m, 1,
@@ -1430,7 +1655,7 @@ def trial_bound_ms(tc, args, int_ops, f64_ops):
     n, nn = tc["n"], tc["nn"]
     b = args[0].shape[0]
     n_modes = tc["n_modes"]
-    read = sum(a.numel() * a.element_size() for a in args)
+    read = sum(a.numel() * a.element_size() for a in args if a is not None)
     read += sum(tc[k].numel() * tc[k].element_size() for k in
                 unit_fused.table_keys(n) + unit_fused.PARAM_KEYS)
     written = b * 4 * 2 + b * nn * 4 * 2 + b * 8 * 4

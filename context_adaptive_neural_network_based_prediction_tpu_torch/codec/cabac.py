@@ -4,10 +4,12 @@ The port's copy of the normative tables of the JAX package's
 `codec/cabac.py` that the rate model needs: the LPS range table, the
 renormalisation table, HM's 7-bit state transitions, the FAST_BIT_EST
 entropy table (15-bit fixed point per state) and the context init formula
-(HM-16.15 `ContextModel.cpp:56-117`, `TComCABACTables.cpp:43-118`), and
-the decoding engine `CabacDecoder` (`TDecBinCoderCABAC.cpp:68-370`) the
-port's frame decoder reads streams with.  The arithmetic encoder stays on
-the host in `native/cabac_pack.cpp`.
+(HM-16.15 `ContextModel.cpp:56-117`, `TComCABACTables.cpp:43-118`), the
+decoding engine `CabacDecoder` (`TDecBinCoderCABAC.cpp:68-370`) the
+port's frame decoder reads streams with, and the encoding engine
+`CabacEncoder` (`TEncBinCoderCABAC.cpp`) the HM-syntax writer
+(`hm_encoder.py`) codes with.  The framework container's payload is coded
+by the native packer (`native/cabac_pack.cpp`).
 """
 
 from __future__ import annotations
@@ -210,3 +212,134 @@ class CabacDecoder:
 
 
 EP_BIN_BITS = 32768  # one bypass bin = 1.0 bit in 15-bit fixed point
+
+
+class CabacEncoder:
+    """HM TEncBinCABAC with an in-memory byte FIFO.  `ctx` is the context
+    state array (numpy or a list), updated in place."""
+
+    def __init__(self):
+        self.bytes = bytearray()
+        self._partial_bits = 0
+        self._partial_count = 0
+        self.start()
+
+    def start(self):
+        self.low = 0
+        self.range = 510
+        self.bits_left = 23
+        self.num_buffered_bytes = 0
+        self.buffered_byte = 0xFF
+
+    # -- engine ------------------------------------------------------------
+
+    def encode_bin(self, bin_value: int, ctx, idx: int):
+        state = int(ctx[idx])
+        lps = _LPS[state >> 1][(self.range >> 6) & 3]
+        self.range -= lps
+        if bin_value != (state & 1):
+            num_bits = _RENORM[lps >> 3]
+            self.low = (self.low + self.range) << num_bits
+            self.range = lps << num_bits
+            ctx[idx] = _NEXT_LPS[state]
+            self.bits_left -= num_bits
+        else:
+            ctx[idx] = _NEXT_MPS[state]
+            if self.range >= 256:
+                return
+            self.low <<= 1
+            self.range <<= 1
+            self.bits_left -= 1
+        self._test_and_write_out()
+
+    def encode_bin_ep(self, bin_value: int):
+        self.low <<= 1
+        if bin_value:
+            self.low += self.range
+        self.bits_left -= 1
+        self._test_and_write_out()
+
+    def encode_bins_ep(self, bin_values: int, num_bins: int):
+        while num_bins > 8:
+            num_bins -= 8
+            pattern = bin_values >> num_bins
+            self.low = (self.low << 8) + self.range * pattern
+            bin_values -= pattern << num_bins
+            self.bits_left -= 8
+            self._test_and_write_out()
+        self.low = (self.low << num_bins) + self.range * bin_values
+        self.bits_left -= num_bins
+        self._test_and_write_out()
+
+    def encode_bin_trm(self, bin_value: int):
+        self.range -= 2
+        if bin_value:
+            self.low += self.range
+            self.low <<= 7
+            self.range = 2 << 7
+            self.bits_left -= 7
+        elif self.range >= 256:
+            return
+        else:
+            self.low <<= 1
+            self.range <<= 1
+            self.bits_left -= 1
+        self._test_and_write_out()
+
+    def finish(self) -> bytes:
+        if self.low >> (32 - self.bits_left):
+            self.bytes.append((self.buffered_byte + 1) & 0xFF)
+            while self.num_buffered_bytes > 1:
+                self.bytes.append(0x00)
+                self.num_buffered_bytes -= 1
+            self.low -= 1 << (32 - self.bits_left)
+        else:
+            if self.num_buffered_bytes > 0:
+                self.bytes.append(self.buffered_byte)
+            while self.num_buffered_bytes > 1:
+                self.bytes.append(0xFF)
+                self.num_buffered_bytes -= 1
+        # The remaining (24 - bits_left) bits of low, MSB first.
+        self._write_raw_bits(self.low >> 8, 24 - self.bits_left)
+        return bytes(self.bytes)
+
+    def terminate_and_finish(self) -> bytes:
+        """encodeBinTrm(1) + finish + stop bit + byte align (HM flush)."""
+        self.encode_bin_trm(1)
+        self.finish()
+        self._write_raw_bits(1, 1)
+        while self._partial_count:
+            self._write_raw_bits(0, 1)
+        return bytes(self.bytes)
+
+    # -- internals ---------------------------------------------------------
+
+    def _write_raw_bits(self, value: int, n_bits: int):
+        """Bit-level writes, only after finish() (the bitstream tail)."""
+        for i in range(n_bits - 1, -1, -1):
+            self._partial_bits = (self._partial_bits << 1) | ((value >> i)
+                                                              & 1)
+            self._partial_count += 1
+            if self._partial_count == 8:
+                self.bytes.append(self._partial_bits)
+                self._partial_bits = 0
+                self._partial_count = 0
+
+    def _test_and_write_out(self):
+        if self.bits_left < 12:
+            lead_byte = self.low >> (24 - self.bits_left)
+            self.bits_left += 8
+            self.low &= 0xFFFFFFFF >> self.bits_left
+            if lead_byte == 0xFF:
+                self.num_buffered_bytes += 1
+            elif self.num_buffered_bytes > 0:
+                carry = lead_byte >> 8
+                self.bytes.append((self.buffered_byte + carry) & 0xFF)
+                byte = (0xFF + carry) & 0xFF
+                while self.num_buffered_bytes > 1:
+                    self.bytes.append(byte)
+                    self.num_buffered_bytes -= 1
+                self.buffered_byte = lead_byte & 0xFF
+            else:
+                self.num_buffered_bytes = 1
+                self.buffered_byte = lead_byte & 0xFF

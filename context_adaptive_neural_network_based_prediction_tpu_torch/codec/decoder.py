@@ -7,12 +7,12 @@ PNNS bin and its own context, `TDecSbac.cpp:645-760` in hm_16_15_switch),
 cbf and coefficients, then reconstruct TU by TU with the same reference
 samples, intra prediction, dequantisation and inverse transform, and for
 the NN policies the same PNN forward (`nn_intra.PnnPredictor`, quantized
-models, on its device).  The stream parsing and per-TU work are host
-numpy; only the PNN forward runs on the device.
-
-Deblocking and SAO are not ported (ROADMAP A7): a header with either set
-raises.  Transform skip and TU-split depths are parsed as in the JAX
-package.
+models, on its device).  After the CUs the loop filters run as in the JAX
+package (:199-220): the SAO parameters parsed after the last CU,
+deblocking on the TU map (`deblock.deblock_luma`, native), then
+`sao.apply_sao`.  The stream parsing, per-TU work and loop filters are
+host work; only the PNN forward runs on the device.  Transform skip and
+TU-split depths are parsed as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops import intra, reference_samples as rs, transform
-from . import cabac, syntax
+from . import cabac, deblock, sao as sao_mod, syntax
 from .contexts import OFFSETS, make_context_states
 from .encoder import MAGIC, MAX_TU, MIN_CU, PNNS_MODE, POLICIES, mpms_switch
 from .nn_intra import PnnPredictor
@@ -51,10 +51,8 @@ class FrameDecoder:
              HEADER, bitstream[:header_size])
         if magic != MAGIC:
             raise ValueError("not a CPNN bitstream")
-        if deblocking or sao_on:
-            raise NotImplementedError(
-                "the port's decoder has no deblocking or SAO step yet "
-                "(ROADMAP A7)")
+        self.deblocking = bool(deblocking)
+        self.sao_on = bool(sao_on)
         self.policy = POLICIES[policy_idx]
         if self.policy != "regular" and pnn is None:
             raise ValueError("NN policies need a PnnPredictor to decode")
@@ -80,6 +78,8 @@ class FrameDecoder:
         self.unit_coded = np.zeros((uh, uw), dtype=bool)
         self.mode_map = np.full((uh, uw), -1, dtype=np.int32)
         self.depth_map = np.zeros((uh, uw), dtype=np.int32)
+        self.tu_map = np.full((uh, uw), -1, dtype=np.int32)
+        self.tu_counter = 0
 
     # ------------------------------------------------------------ helpers --
 
@@ -144,6 +144,9 @@ class FrameDecoder:
             rec = pred
         self.recon[y:y + n, x:x + n] = rec
         self.unit_coded[y // 4:(y + n) // 4, x // 4:(x + n) // 4] = True
+        self.tu_map[y // 4:(y + n) // 4, x // 4:(x + n) // 4] = \
+            self.tu_counter
+        self.tu_counter += 1
 
     def _decode_tu_tree(self, x, y, size, depth, mode, nxn=False):
         forced = size > MAX_TU
@@ -211,8 +214,18 @@ class FrameDecoder:
         for cy in range(0, self.h, self.ctu):
             for cx in range(0, self.w, self.ctu):
                 self._decode_cu(cx, cy, self.ctu, 0)
+        sao_grid = None
+        if self.sao_on:
+            sao_grid = sao_mod.decode_params(
+                self.dec, self.ctx, (self.h + self.ctu - 1) // self.ctu,
+                (self.w + self.ctu - 1) // self.ctu)
+        final = self.recon.astype(np.uint8)
+        if self.deblocking:
+            final = deblock.deblock_luma(final, self.tu_map, self.qp)
+        if sao_grid is not None:
+            final = sao_mod.apply_sao(final, sao_grid, self.ctu)
         return DecodeResult(
-            reconstruction=self.recon.astype(np.uint8),
+            reconstruction=final,
             mode_map=self.mode_map.copy(),
             qp=self.qp,
             policy=self.policy,

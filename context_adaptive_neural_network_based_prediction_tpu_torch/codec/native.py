@@ -1,9 +1,11 @@
-"""ctypes binding of the native CABAC packer (`native/cabac_pack.cpp`).
+"""ctypes bindings of the native CABAC packer (`native/cabac_pack.cpp`)
+and of HM's luma deblocking (`native/hm_parse.cpp`).
 
-The port's own binding of `pack_tree_grids`: it compiles the repository's
-`native/*.cpp` with g++ into the port's build directory (`_build/`, keyed
-by a hash of the sources) at first use and never writes into `native/`.
-There is no Python serializer behind it: if g++ fails, the build raises.
+The port's own bindings of `pack_tree_grids` and `deblock_luma_native`: it
+compiles the repository's `native/*.cpp` with g++ into the port's build
+directory (`_build/`, keyed by a hash of the sources) at first use and
+never writes into `native/`.  There is no Python serializer or
+deblocking behind them: if g++ fails, the build raises.
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ def load_library():
             lib.pack_tree_grids.argtypes = (
                 [i32p] * 14 + [ctypes.c_int32] * 6
                 + [ctypes.c_void_p, ctypes.c_int64])
+            lib.deblock_luma_native.restype = ctypes.c_int
+            lib.deblock_luma_native.argtypes = [
+                i32p, ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int,
+                ctypes.c_int]
             _lib = lib
     return _lib
 
@@ -58,14 +64,17 @@ def pack_tree_payload(grids, *, width: int, height: int, qp: int,
     """CABAC payload for a wavefront2 decided-grid frame (no header).
 
     `grids` is the `_assemble_arrays` tuple (m8, q8, s8, m4, q4, m16, q16,
-    s16, m32, q32, s32); the CTB-64 grids are not part of the port yet."""
-    if len(grids) != 11:
-        raise ValueError("the port packs CTB-32 grids (11 arrays)")
-    (m8, q8, s8, m4, q4, m16, q16, s16, m32, q32, s32) = grids
+    s16, m32, q32, s32), with (m64, q64, s64) after it at CTB 64."""
+    if len(grids) != (14 if ctu_size == 64 else 11):
+        raise ValueError(f"CTB {ctu_size} packs "
+                         f"{14 if ctu_size == 64 else 11} grids, got "
+                         f"{len(grids)}")
+    (m8, q8, s8, m4, q4, m16, q16, s16, m32, q32, s32) = grids[:11]
     lib = load_library()
     keep = [np.ascontiguousarray(a, dtype=np.int32)
-            for a in (m4, q4, m8, q8, s8, m16, q16, s16, m32, q32, s32)]
-    ptrs = [a.ctypes.data for a in keep] + [None, None, None]
+            for a in (m4, q4, m8, q8, s8, m16, q16, s16, m32, q32, s32)
+            + tuple(grids[11:])]
+    ptrs = [a.ctypes.data for a in keep] + [None] * (14 - len(keep))
     cap = max(width * height * 4, 1 << 16)
     out = np.empty(cap, dtype=np.uint8)
     size = lib.pack_tree_grids(
@@ -74,3 +83,21 @@ def pack_tree_payload(grids, *, width: int, height: int, qp: int,
     if size < 0:
         raise RuntimeError(f"pack_tree_grids failed with code {size}")
     return bytes(out[:size])
+
+
+def deblock_luma(plane: np.ndarray, tu_map: np.ndarray, qp: int
+                 ) -> np.ndarray:
+    """HM's luma deblocking (`deblock_luma_native`,
+    `native/hm_parse.cpp:1554`) of an 8-bit plane: a new array of the
+    plane's dtype.  Raises if the library does not build or the call
+    fails."""
+    out = np.array(plane, dtype=np.int32, order="C")
+    tu = np.ascontiguousarray(tu_map, dtype=np.int32)
+    h, w = out.shape
+    if tu.shape != (h // 4, w // 4):
+        raise ValueError(f"tu_map {tu.shape} != {(h // 4, w // 4)}")
+    rc = load_library().deblock_luma_native(
+        out.ctypes.data, h, w, tu.ctypes.data, tu.shape[1], int(qp))
+    if rc != 0:
+        raise RuntimeError(f"deblock_luma_native failed with code {rc}")
+    return out.astype(plane.dtype)

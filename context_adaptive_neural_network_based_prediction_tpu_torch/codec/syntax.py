@@ -4,10 +4,12 @@ the decode side of intra modes and residual coefficients.
 The port's copy of the JAX package's `codec/syntax.py`: the context-index
 functions (HM `TComTrQuant::{calcPatternSigCtx,getSigCtxInc}`,
 `getLastSignificantContextParameters`, `TComDataCU::getCoefScanIdx`), the
-MPM derivation (`TComDataCU::getIntraDirPredictor`), and the decoders of
-the luma mode (`TDecSbac::parseIntraDirLumaAng`) and of one TU's
-coefficients with sign-data hiding (`TDecSbac::parseCoeffNxN`).  Coding
-itself happens in the native packer.
+MPM derivation (`TComDataCU::getIntraDirPredictor`), the decoders of the
+luma mode (`TDecSbac::parseIntraDirLumaAng`) and of one TU's coefficients
+with sign-data hiding (`TDecSbac::parseCoeffNxN`), and their encoders
+(`TEncSbac::codeIntraDirLumaAng`, `TEncSbac::codeCoeffNxN`,
+`xWriteCoefRemainExGolomb`) for the HM-syntax writer (`hm_encoder.py`).
+The framework container's payload is coded by the native packer.
 """
 
 from __future__ import annotations
@@ -129,6 +131,25 @@ def mpm_candidates(left_mode: int, above_mode: int):
     return [mpm0, mpm1, mpm2]
 
 
+def encode_intra_mode(enc: cabac.CabacEncoder, ctx: np.ndarray, mode: int, mpms):
+    if mode in mpms:
+        enc.encode_bin(1, ctx, OFFSETS.prev_intra)
+        idx = mpms.index(mode)
+        if idx == 0:
+            enc.encode_bin_ep(0)
+        else:
+            enc.encode_bin_ep(1)
+            enc.encode_bin_ep(idx - 1)
+    else:
+        enc.encode_bin(0, ctx, OFFSETS.prev_intra)
+        sorted_mpms = sorted(mpms)
+        rem = mode
+        for m in reversed(sorted_mpms):
+            if rem > m:
+                rem -= 1
+        enc.encode_bins_ep(rem, 5)
+
+
 def decode_intra_mode(dec: cabac.CabacDecoder, ctx: np.ndarray, mpms) -> int:
     if dec.decode_bin(ctx, OFFSETS.prev_intra):
         if dec.decode_bin_ep() == 0:
@@ -142,6 +163,175 @@ def decode_intra_mode(dec: cabac.CabacDecoder, ctx: np.ndarray, mpms) -> int:
 
 
 # -------------------------------------------------------------- residual ----
+
+def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
+                        coeffs: np.ndarray, mode: int,
+                        sign_hiding: bool = False,
+                        channel: _ChannelParams = LUMA):
+    """Encodes one non-empty n x n TU coefficient block (luma or chroma)."""
+    ch = channel
+    n = coeffs.shape[0]
+    log2n = n.bit_length() - 1
+    scan_type = _scan_for(mode, n, ch)
+    scan = scans.scan_order(n, n, scan_type)
+    scan_cg = scans.cg_scan_order(n, n, scan_type)
+    flat = coeffs.reshape(-1)
+    first_ctx = _first_sig_ctx(n, scan_type, ch)
+    width_in_groups = max(n // 4, 1)
+
+    nz_scan_positions = np.nonzero(flat[scan] != 0)[0]
+    assert nz_scan_positions.size > 0, "empty TU passed to encode_coefficients"
+    scan_pos_last = int(nz_scan_positions[-1])
+    pos_last = int(scan[scan_pos_last])
+    pos_last_y, pos_last_x = divmod(pos_last, n)
+
+    sig_cg = np.zeros(max(width_in_groups * width_in_groups, 1), dtype=np.int32)
+    for sp in nz_scan_positions:
+        rp = int(scan[sp])
+        py, px = divmod(rp, n)
+        sig_cg[(py >> 2) * width_in_groups + (px >> 2)] = 1
+
+    # ---- last significant position ----
+    lx, ly = pos_last_x, pos_last_y
+    if scan_type == scans.SCAN_VER:
+        lx, ly = ly, lx
+    group_x = int(scans.GROUP_IDX[lx])
+    group_y = int(scans.GROUP_IDX[ly])
+    blk_offset, shift = _last_ctx_params(log2n, ch)
+    for c in range(group_x):
+        enc.encode_bin(1, ctx, ch.last_x + blk_offset + (c >> shift))
+    if group_x < int(scans.GROUP_IDX[n - 1]):
+        enc.encode_bin(0, ctx, ch.last_x + blk_offset + (group_x >> shift))
+    for c in range(group_y):
+        enc.encode_bin(1, ctx, ch.last_y + blk_offset + (c >> shift))
+    if group_y < int(scans.GROUP_IDX[n - 1]):
+        enc.encode_bin(0, ctx, ch.last_y + blk_offset + (group_y >> shift))
+    if group_x > 3:
+        count = (group_x - 2) >> 1
+        rem = lx - int(scans.MIN_IN_GROUP[group_x])
+        for i in range(count - 1, -1, -1):
+            enc.encode_bin_ep((rem >> i) & 1)
+    if group_y > 3:
+        count = (group_y - 2) >> 1
+        rem = ly - int(scans.MIN_IN_GROUP[group_y])
+        for i in range(count - 1, -1, -1):
+            enc.encode_bin_ep((rem >> i) & 1)
+
+    # ---- per-CG coding, last to first ----
+    last_scan_set = scan_pos_last >> 4
+    c1 = 1
+    scan_pos_sig = scan_pos_last
+
+    # Track sig_cg flags as coded (for context of subsequent CGs the full map
+    # is already known to the encoder; HM builds it upfront identically).
+    for subset in range(last_scan_set, -1, -1):
+        sub_pos = subset << 4
+        go_rice = 0
+        abs_coeffs = []
+        coeff_signs = 0
+        num_nonzero = 0
+        last_nz_in_cg = -1
+        first_nz_in_cg = 16
+
+        if scan_pos_sig == scan_pos_last:
+            v = int(flat[pos_last])
+            abs_coeffs.append(abs(v))
+            coeff_signs = 1 if v < 0 else 0
+            num_nonzero = 1
+            last_nz_in_cg = first_nz_in_cg = scan_pos_sig
+            scan_pos_sig -= 1
+
+        cg_blk = int(scan_cg[subset])
+        cg_y, cg_x = divmod(cg_blk, width_in_groups)
+        if subset == last_scan_set or subset == 0:
+            sig_cg[cg_blk] = 1
+        else:
+            right = cg_x < width_in_groups - 1 and sig_cg[cg_blk + 1]
+            below = cg_y < width_in_groups - 1 and sig_cg[cg_blk + width_in_groups]
+            ctx_cg = 1 if (right or below) else 0
+            enc.encode_bin(int(sig_cg[cg_blk]), ctx, ch.sig_cg + ctx_cg)
+
+        if sig_cg[cg_blk]:
+            right = cg_x < width_in_groups - 1 and sig_cg[cg_blk + 1]
+            below = cg_y < width_in_groups - 1 and sig_cg[cg_blk + width_in_groups]
+            pattern = (1 if right else 0) + (2 if below else 0)
+            while scan_pos_sig >= sub_pos:
+                rp = int(scan[scan_pos_sig])
+                py, px = divmod(rp, n)
+                sig = 1 if flat[rp] != 0 else 0
+                if scan_pos_sig > sub_pos or subset == 0 or num_nonzero:
+                    ctx_sig = _sig_ctx(pattern, px, py, log2n, scan_type, first_ctx, ch)
+                    enc.encode_bin(sig, ctx, ctx_sig)
+                if sig:
+                    v = int(flat[rp])
+                    abs_coeffs.append(abs(v))
+                    coeff_signs = 2 * coeff_signs + (1 if v < 0 else 0)
+                    num_nonzero += 1
+                    if last_nz_in_cg == -1:
+                        last_nz_in_cg = scan_pos_sig
+                    first_nz_in_cg = scan_pos_sig
+                scan_pos_sig -= 1
+        else:
+            scan_pos_sig = sub_pos - 1
+
+        if num_nonzero > 0:
+            hidden = sign_hiding and (last_nz_in_cg - first_nz_in_cg >= SBH_THRESHOLD)
+            ctx_set = _greater1_ctx_set(subset, c1 == 0, ch)
+            c1 = 1
+            base_g1 = ch.greater1 + 4 * ctx_set
+            escape_present = False
+            num_c1 = min(num_nonzero, C1FLAG_NUMBER)
+            first_c2_idx = -1
+            for idx in range(num_c1):
+                symbol = 1 if abs_coeffs[idx] > 1 else 0
+                enc.encode_bin(symbol, ctx, base_g1 + c1)
+                if symbol:
+                    c1 = 0
+                    if first_c2_idx == -1:
+                        first_c2_idx = idx
+                    else:
+                        escape_present = True
+                elif 0 < c1 < 3:
+                    c1 += 1
+            if c1 == 0 and first_c2_idx != -1:
+                symbol = 1 if abs_coeffs[first_c2_idx] > 2 else 0
+                enc.encode_bin(symbol, ctx, ch.greater2 + ctx_set)
+                if symbol:
+                    escape_present = True
+            escape_present = escape_present or (num_nonzero > C1FLAG_NUMBER)
+
+            if hidden:
+                enc.encode_bins_ep(coeff_signs >> 1, num_nonzero - 1)
+            else:
+                enc.encode_bins_ep(coeff_signs, num_nonzero)
+
+            if escape_present:
+                first_coeff2 = 1
+                for idx in range(num_nonzero):
+                    base_level = (2 + first_coeff2) if idx < C1FLAG_NUMBER else 1
+                    if abs_coeffs[idx] >= base_level:
+                        _write_coef_remain(enc, abs_coeffs[idx] - base_level, go_rice)
+                        if abs_coeffs[idx] > (3 << go_rice):
+                            go_rice = min(go_rice + 1, 4)
+                    if abs_coeffs[idx] >= 2:
+                        first_coeff2 = 0
+
+
+def _write_coef_remain(enc: cabac.CabacEncoder, symbol: int, r_param: int):
+    if symbol < (COEF_REMAIN_BIN_REDUCTION << r_param):
+        length = symbol >> r_param
+        enc.encode_bins_ep((1 << (length + 1)) - 2, length + 1)
+        enc.encode_bins_ep(symbol % (1 << r_param), r_param)
+    else:
+        length = r_param
+        code = symbol - (COEF_REMAIN_BIN_REDUCTION << r_param)
+        while code >= (1 << length):
+            code -= 1 << length
+            length += 1
+        enc.encode_bins_ep((1 << (COEF_REMAIN_BIN_REDUCTION + length + 1 - r_param)) - 2,
+                           COEF_REMAIN_BIN_REDUCTION + length + 1 - r_param)
+        enc.encode_bins_ep(code, length)
+
 
 def _read_coef_remain(dec: cabac.CabacDecoder, r_param: int) -> int:
     prefix = 0

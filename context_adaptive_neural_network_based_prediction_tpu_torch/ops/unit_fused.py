@@ -19,7 +19,10 @@ mode (the counts keep the JAX package's cbf=0 sig-bin bias).
   JAX package's formulation on (n^2, modes * slots) arrays, predictions and
   transforms as float32 matrix products of small integers (every product
   and partial sum is an integer below 2^24, so the products are exact; on
-  the card TF32 is off).
+  the card TF32 is off).  Its reference filter (`ref_columns`),
+  transforms (`_forward_plain`, `_inverse_plain`), RDOQ-lite
+  (`rdoq_lite`) and reconstruction (`reconstruct`) are also what the
+  wavefront encoder's 64x64 candidate runs, on per-mode references.
 * `trial_apply` is the wrapper: CPU tensors go to the plain version, CUDA
   tensors to the kernel of `csrc/unit_trial.cu`.  `impl="plain"` asks for
   the plain version on the card (for comparing the two).  Per call the
@@ -518,6 +521,30 @@ def _i32_sum(x, dim):
     return (((s + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
 
 
+def ref_columns(tc, comb):
+    """[raw | filtered | 1] columns (RRp, C) of reference columns comb
+    (Rp, C) f32: the [1 2 1] filter, at n = 32 the strong (bilinear)
+    smoothing where a column's references are near-linear
+    (`TComPattern.cpp:415-470`), and the constant rows the prediction
+    matrix `P2` reads."""
+    n = tc["n"]
+    combf = _floordiv2(tc["F"] @ comb + 2.0, 2)
+    if tc.get("strong"):
+        LEFT = 2 * n + 1
+        c0 = comb[0:1]
+        tr = comb[2 * n:2 * n + 1]
+        tn = comb[n:n + 1]
+        bl = comb[LEFT + 2 * n:LEFT + 2 * n + 1]
+        ln_ = comb[LEFT + n:LEFT + n + 1]
+        cond = ((bl + c0 - 2.0 * ln_).abs() < 8.0) \
+            & ((c0 + tr - 2.0 * tn).abs() < 8.0)
+        combs = _floordiv2(tc["Fs"] @ comb + 32.0, 6)
+        combf = torch.where(cond, combs, combf)
+    ones = torch.ones((tc["RRp"] - 2 * tc["Rp"], comb.shape[1]),
+                      dtype=torch.float32, device=comb.device)
+    return torch.cat([comb, combf, ones], dim=0)
+
+
 def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     """Core of the plain trial on (n^2, M*B)-layout values (lane m*B + j =
     mode m of slot j), all M_PAD mode blocks at once.
@@ -533,32 +560,14 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     B = comb.shape[1]
     M = M_PAD
     L = M * B
-    SB = tc["SB"]
     i32, f32 = torch.int32, torch.float32
     LAM = _f32(tc["lam"])
-    MBf = 256.0
 
-    def lane(t):    # per-mode columns (rows, M or 1) -> lanes (rows, M*B)
-        if t.shape[1] == 1:
-            return t.expand(t.shape[0], L).contiguous()
-        return t.repeat_interleave(B, dim=1)
+    def lane(t):
+        return _lanes(t, M, L)
 
     # ---- references: filter + 35-mode prediction as matrix products ----
-    combf = _floordiv2(tc["F"] @ comb + 2.0, 2)
-    if tc.get("strong"):
-        LEFT = 2 * n + 1
-        c0 = comb[0:1]
-        tr = comb[2 * n:2 * n + 1]
-        tn = comb[n:n + 1]
-        bl = comb[LEFT + 2 * n:LEFT + 2 * n + 1]
-        ln_ = comb[LEFT + n:LEFT + n + 1]
-        cond = ((bl + c0 - 2.0 * ln_).abs() < 8.0) \
-            & ((c0 + tr - 2.0 * tn).abs() < 8.0)
-        combs = _floordiv2(tc["Fs"] @ comb + 32.0, 6)
-        combf = torch.where(cond, combs, combf)
-    ones = torch.ones((tc["RRp"] - 2 * tc["Rp"], B), dtype=f32,
-                      device=comb.device)
-    comb2 = torch.cat([comb, combf, ones], dim=0)
+    comb2 = ref_columns(tc, comb)
     blocks = _floordiv2(tc["P2"] @ comb2, 6).view(M, nn, B)
 
     # DC plane (mode 1) + mode 10/26 edge adjustments.
@@ -594,15 +603,60 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     resi = orig_rep.to(f32) - preds
 
     coeff = _forward_plain(tc, resi)
+    q, tu_bits, lvl, sig_paid = rdoq_lite(tc, coeff, rate_rows.repeat(1, M),
+                                          M)
+    rec = reconstruct(tc, preds, q)
 
-    # ---- RDOQ-lite (raster domain) ----
+    sse = _i32_sum((rec - orig_rep) * (rec - orig_rep), 0)
+    cost = (sse.to(f32) + LAM * (tu_bits + mode_row)
+            + lane(tc["mode_big_m"]))
+
+    # CABAC bin counts of this mode's decided TU (row order of rate_rows).
+    nzf = lvl > 0
+    cnt = torch.cat([
+        _i32_sum((sig_paid & ~nzf).to(i32), 0),
+        _i32_sum((sig_paid & nzf).to(i32), 0),
+        _i32_sum((lvl == 1).to(i32), 0),
+        _i32_sum((lvl >= 2).to(i32), 0),
+        _i32_sum((lvl == 2).to(i32), 0),
+        _i32_sum((lvl >= 3).to(i32), 0),
+        nzf.any(dim=0, keepdim=True).to(i32),
+        torch.ones((1, L), dtype=i32, device=comb.device),
+    ], dim=0)
+    return cost, rec, q, cnt
+
+
+def _lanes(t, M, L):
+    """Per-mode columns (rows, M_PAD or 1) of a table -> (rows, L) lanes,
+    lane m * (L // M) + j = mode m of slot j."""
+    if t.shape[1] == 1:
+        return t.expand(t.shape[0], L).contiguous()
+    return t[:, :M].repeat_interleave(L // M, dim=1)
+
+
+def rdoq_lite(tc, coeff, rr, M=M_PAD):
+    """RDOQ-lite of the coefficients coeff (n^2, L) f32 (CG-grouped raster
+    order, lanes as in `_lanes` over the first M mode blocks): per
+    coefficient the cheapest of round-half-up, one less and 0, the TU rate
+    in micro-bits, the cbf = 0 option and sign-data hiding per 4x4 group.
+    rr (8, L) i32 are the live rate-state micro-bit deltas (zeros: the
+    static tables).  Returns (q (n^2, L) i32 signed levels, tu_bits (1, L)
+    f32, lvl (n^2, L) i32 the decided magnitudes, sig_paid (n^2, L) bool:
+    the sig flags the TU codes).  Transcribes the JAX package's `quantize_rd`
+    (`parallel/wavefront2.py:659-842`), float32 rounding included: the
+    fused trial and the 64x64 candidate both run it."""
+    nn = tc["nn"]
+    L = coeff.shape[1]
+    SB = tc["SB"]
+    i32, f32 = torch.int32, torch.float32
+    LAM = _f32(tc["lam"])
+    MBf = 256.0
     qstep = float(2.0 ** tc["qbits"])
     ES = _f32(tc["err_scale"])
-    sig0 = lane(tc["sig0_m"])
-    sig1 = lane(tc["sig1_m"])
-    scanpos = lane(tc["scanpos_m"])
+    sig0 = _lanes(tc["sig0_m"], M, L)
+    sig1 = _lanes(tc["sig1_m"], M, L)
+    scanpos = _lanes(tc["scanpos_m"], M, L)
     lastpb = tc["lastpb_m"]
-    rr = rate_rows.repeat(1, M)                           # (8, M*B)
     dsig0_i, dsig1_i = rr[0:1], rr[1:2]
     dsig0_f = dsig0_i.to(f32) * (1.0 / MBf)
     dsig1_f = dsig1_i.to(f32) * (1.0 / MBf)
@@ -616,7 +670,7 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
 
     sbg = {k: int(round(SB[k] * MBf)) + dg[k] for k in dg}
     pow2 = torch.tensor([1 << j for j in range(1, 16)], dtype=i32,
-                        device=comb.device)
+                        device=coeff.device)
 
     def level_mbits_i(lvl_i):
         # Integer floor-log2 Golomb tail: g counts the j in 1..15 with
@@ -722,35 +776,21 @@ def _trial_blocks(tc, comb, orig_p, mode_row, rate_rows, nn_pred_p=None):
     hidden = span_ok.to(i32).sum(dim=0).to(i32)          # (1, L)
     lvl = lvl + adj.view(nn, L)
     tu_bits = tu_bits - hidden.to(f32)
-
     q = (sign * lvl.to(f32)).to(i32)
+    return q, tu_bits, lvl, sig_paid
 
-    # ---- dequant + inverse transform + reconstruction ----
+
+def reconstruct(tc, preds, q):
+    """Dequantisation (clipped to 16 bits), the inverse transform and the
+    reconstruction clip: rec (n^2, L) i32 from the predictions preds
+    (n^2, L) f32 and the levels q (n^2, L) i32 (CG-grouped raster)."""
     iq = tc["iq_shift"]
     if iq > 0:
         deq = (q * tc["iq_scale"] + (1 << (iq - 1))) >> iq
     else:
         deq = (q * tc["iq_scale"]) << (-iq)
     deq = deq.clamp(-32768, 32767)
-    rec = (preds.to(i32) + _inverse_plain(tc, deq)).clamp(0, 255)
-
-    sse = _i32_sum(sq(rec - orig_rep), 0)
-    cost = (sse.to(f32) + LAM * (tu_bits + mode_row)
-            + lane(tc["mode_big_m"]))
-
-    # CABAC bin counts of this mode's decided TU (row order of rate_rows).
-    nzf = lvl > 0
-    cnt = torch.cat([
-        _i32_sum((sig_paid & ~nzf).to(i32), 0),
-        _i32_sum((sig_paid & nzf).to(i32), 0),
-        _i32_sum((lvl == 1).to(i32), 0),
-        _i32_sum((lvl >= 2).to(i32), 0),
-        _i32_sum((lvl == 2).to(i32), 0),
-        _i32_sum((lvl >= 3).to(i32), 0),
-        nzf.any(dim=0, keepdim=True).to(i32),
-        torch.ones_like(dsig0_i),
-    ], dim=0)
-    return cost, rec, q, cnt
+    return (preds.to(torch.int32) + _inverse_plain(tc, deq)).clamp(0, 255)
 
 
 def _forward_plain(tc, resi):

@@ -1,15 +1,21 @@
-"""Wavefront v2 quadtree encoder (CTB 32; regular, substitution and switch
-policies; one frame or a batch of frames per call, and a streaming
-encoder).
+"""Wavefront v2 quadtree encoder (CTB 32 or 64; regular, substitution and
+switch policies; one frame or a batch of frames per call, and a streaming
+encoder), with the framework container stream or a standard Annex-B HEVC
+stream as output.
 
 The port of the JAX package's `parallel/wavefront2.py` for the
-configuration its benchmark times.  CTBs run along
-anti-diagonals t = bx + 2*by; at each z-order sub-stage every n x n unit of
-every CTB on the diagonal (one "slot" per CTB) is tried at once by the
-fused unit trial (`ops/unit_fused.py`, on the card the CUDA kernel of
-`ops/csrc/unit_trial.cu`).  The quadtree 32 -> 16 -> 8 (-> four 4x4 NxN
-PUs) is decided in the same pass, and with `rate_evolve` each CTB row
-carries live CABAC bin counts that steer later trials (WPP-style).
+configurations its benchmark and its rate-distortion measurements run.
+CTBs run along anti-diagonals t = bx + 2*by; at each z-order sub-stage
+every n x n unit of every CTB on the diagonal (one "slot" per CTB) is
+tried at once by the fused unit trial (`ops/unit_fused.py`, on the card
+the CUDA kernel of `ops/csrc/unit_trial.cu`).  The quadtree 32 -> 16 -> 8
+(-> four 4x4 NxN PUs) is decided in the same pass, and with `rate_evolve`
+(CTB 32 only, as in the JAX package) each CTB row carries live CABAC bin
+counts that steer later trials (WPP-style).  At CTB 64 (HM's
+intra_main_rext geometry) the CTB-32 body runs in each quadrant in
+z-order, then a 64x64 2Nx2N candidate (one mode, four forced TU32s, each
+mode with its own evolving patch) in plain PyTorch on the same device
+(`_candidate64`).
 
 NN policies (the JAX package's :974-1030): with `policy="substitution"`
 mode 18's prediction is the PNN's, with `policy="switch"` the PNN is a
@@ -19,7 +25,8 @@ reconstruction (two box reads and static per-position strip masks) and
 runs the quantized integer forward (`models/pnn_q.py`, its merger on the
 card the CUDA kernel of `ops/csrc/merger_int.cu`) over all slots at once;
 integer sums make that batched forward equal to the sequential decoder's.
-Under switch a width without a model predicts zeros for PNNS.
+Under switch a width without a model predicts zeros for PNNS.  The 64x64
+candidate bars the PNN modes, as the JAX package does.
 
 Skewed storage, as in the JAX package: the frame, the reconstruction, the
 8x8 mode map, the 8x8 cell costs and the rate state are kept as per-CTB-
@@ -45,20 +52,24 @@ The decided mode / level / split grids are per-step outputs ("ys"),
 assembled into grids on the host (`_assemble_arrays`), turned into CU
 trees and packed by the native CABAC packer.  `encode_stream_wavefront2`
 runs that host half of a batch after its device half.
-Not ported yet: CTB 64, halo sharding, Annex-B.
+`encode_frame_wavefront2_hm` writes the Annex-B stream instead, after
+deblocking and SAO on the host (`codec/deblock.py`, `codec/sao.py`,
+`codec/hm_encoder.py`).  Not ported: halo sharding across devices.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import multiprocessing
 
 import numpy as np
 import torch
 
+from ..codec import deblock, hm_encoder, native, rdo
 from ..codec import encoder as enc_mod
-from ..codec import native, rdo
+from ..codec import sao as sao_mod
 from ..models import pnn_q
 from ..ops import intra, transform, unit_fused
 from ..ops import reference_samples as rs
@@ -290,13 +301,17 @@ def _build_wavefront2(height: int, width: int, qp: int,
     if policy != "regular" and not qmodels:
         raise ValueError("the bundle has no quantized models")
     nn_widths = tuple(sorted(w for w in qmodels if w in NN_SIZES))
-    if ctb != 32:
-        raise NotImplementedError("the port covers CTB 32")
+    if ctb not in (32, 64):
+        raise ValueError("ctb must be 32 or 64")
     if n_frames < 1:
         raise ValueError("n_frames must be at least 1")
     if height % ctb or width % ctb:
         raise ValueError(f"wavefront2 needs frame dims that are multiples "
                          f"of {ctb} (crop/pad first)")
+    if rate_evolve and ctb != 32:
+        # The JAX package has no rate evolution at CTB 64 (:508-511).
+        raise NotImplementedError(
+            "rate_evolve ships for single-device CTB-32 first")
     n_modes = 36 if policy == "switch" else 35
     sbx, sby = width // ctb, height // ctb
     n_steps = (sbx - 1) + 2 * (sby - 1) + 1
@@ -423,8 +438,9 @@ def _substage_classes(plan, n, cmap):
 def _device_plan(plan, device):
     """The plan's tensors on `device`: per-size trial constants, reference
     selection indices per (step, sub-stage, slot), mode-bit and rate-state
-    LUTs, and for each NN width the model's tensors and the context masks
-    per (step, sub-stage, slot)."""
+    LUTs, for each NN width the model's tensors and the context masks
+    per (step, sub-stage, slot), and at CTB 64 the 64 candidate's
+    reference tables."""
     dp = {"trial": {}, "sel": {}, "nn": {}}
     for n in (4, 8, 16, 32):
         c = plan["size_consts"][n]
@@ -440,6 +456,8 @@ def _device_plan(plan, device):
                 ok=torch.from_numpy(c["nn_ok_c"][cls]).to(device),
                 am=torch.from_numpy(c["nn_am_c"][cls]).to(device),
                 lm=torch.from_numpy(c["nn_lm_c"][cls]).to(device))
+    if plan["ctb"] == 64:
+        dp["c64"] = _cand64_tables(plan, device)
     _, bx = _slot_schedule(plan)
     dp["bx"] = torch.from_numpy(bx.astype(np.int32)).to(device)
     dp["mode_bits"] = torch.from_numpy(plan["MODE_BITS"]).to(device)
@@ -493,27 +511,41 @@ def _commit(buf, upd, p0, r0, c0, cond=None):
     view.copy_(upd)
 
 
+_KEYS32 = ("m8", "q8", "s8", "m16", "q16", "s16", "m32", "q32", "s32",
+           "m4", "q4")
+
+
 def _new_ys(plan, device):
     """Per-step decision outputs, preallocated: shapes of the JAX
     package's stacked scan outputs (leading axis n_steps, slot axis
-    b_eff)."""
+    b_eff).  At CTB 64 the 32-rooted outputs carry the quadrant of the
+    64 CTB as a second axis (the JAX package's `sub`), beside the 64
+    level's m64 / q64 / s64."""
     T, b = plan["n_steps"], plan["b_eff"]
     i8, i16 = torch.int8, torch.int16
-    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    lead = (T,) if plan["ctb"] == 32 else (T, 4)
+    z = lambda shape, dt: torch.zeros(lead + shape, dtype=dt, device=device)
     ys = dict(
-        m8=z((T, 4, 4, b), i8), q8=z((T, 4, 4, b, 8, 8), i16),
-        s8=z((T, 4, 4, b), i8),
-        m16=z((T, 4, b), i8), q16=z((T, 4, b, 16, 16), i16),
-        s16=z((T, 4, b), i8),
-        m32=z((T, b), i8), q32=z((T, b, 32, 32), i16), s32=z((T, b), i8))
+        m8=z((4, 4, b), i8), q8=z((4, 4, b, 8, 8), i16),
+        s8=z((4, 4, b), i8),
+        m16=z((4, b), i8), q16=z((4, b, 16, 16), i16),
+        s16=z((4, b), i8),
+        m32=z((b,), i8), q32=z((b, 32, 32), i16), s32=z((b,), i8))
     if plan["enable_nxn"]:
-        ys.update(m4=z((T, 4, 4, 4, b), i8), q4=z((T, 4, 4, 4, b, 4, 4), i16))
+        ys.update(m4=z((4, 4, 4, b), i8), q4=z((4, 4, 4, b, 4, 4), i16))
+    if plan["ctb"] == 64:
+        zz = lambda shape, dt: torch.zeros((T,) + shape, dtype=dt,
+                                           device=device)
+        ys.update(m64=zz((b,), i8), q64=zz((b, 64, 64), i16),
+                  s64=zz((b,), i8))
     return ys
 
 
 def _step(plan, dp, st, ys, t, impl):
-    """One wavefront step: the CTB-32 quadtree of every (slot, frame) on
-    diagonal t (JAX package `step`, :844-1475, the `ctb == 32` branch).
+    """One wavefront step: the quadtree of every (slot, frame) CTB on
+    diagonal t (JAX package `step`, :844-1475).  At CTB 32 one CTB-32 body
+    at offset (0, 0); at CTB 64 the same body at the four quadrant
+    offsets in z-order, then the 64x64 2Nx2N candidate (`_candidate64`).
     Plane offsets are the JAX package's: a CTB row's planes start at
     (row) * NF, so one box of b_eff planes covers every slot of every
     frame."""
@@ -676,94 +708,123 @@ def _step(plan, dp, st, ys, t, impl):
     lam_p2n = f32c(lam * SB["part_2nx2n"])
     lam_pnxn = f32c(lam * SB["part_nxn"])
     lam_s0, lam_s1 = f32c(lam * SB["split0"]), f32c(lam * SB["split1"])
-    qsum = torch.zeros((b,), dtype=f32, device=dev)
-    qa4, qa8, qa16 = zeros8(), zeros8(), zeros8()
-    for quad in range(4):
-        qdx, qdy = quad & 1, quad >> 1
-        zb4, zb8 = zeros8(), zeros8()
-        for z in range(4):
-            ly8 = (qdy * 2 + (z >> 1)) * 8
-            lx8 = (qdx * 2 + (z & 1)) * 8
-            if plan["enable_nxn"]:
-                # NxN: the four 4x4 PUs predict from the evolving
-                # reconstruction; if 2Nx2N wins, its rec overwrites them.
-                cost_nxn = torch.zeros((b,), dtype=f32, device=dev)
-                cnt_nxn = zeros8()
-                for s4 in range(4):
-                    ly4 = ly8 + (s4 >> 1) * 4
-                    lx4 = lx8 + (s4 & 1) * 4
-                    c4, m4b, rec4, q4b, cn4 = encode_unit_b(4, ly4, lx4)
-                    commit_rec(rec4, ly4, lx4)
-                    cost_nxn = cost_nxn + c4
-                    cnt_nxn = cnt_nxn + cn4
-                    ys["m4"][t, quad, z, s4] = m4b.to(torch.int8)
-                    ys["q4"][t, quad, z, s4] = q4b.to(torch.int16)
-                last_m4 = m4b
-                # The 8x8 2Nx2N trial reads only outside the cell, so
-                # running it after the 4x4 chain is exact.
-                cost8, mode8b, rec8, q8b, cn8 = encode_unit_b(8, ly8, lx8)
-                use2n = cost8 + lam_p2n < cost_nxn + lam_pnxn
-                cell_cost = torch.where(use2n, cost8 + lam_p2n,
-                                        cost_nxn + lam_pnxn)
-            else:
-                cost8, mode8b, rec8, q8b, cn8 = encode_unit_b(8, ly8, lx8)
-                last_m4 = mode8b
-                cnt_nxn = zeros8()
-                use2n = torch.ones_like(cost8, dtype=torch.bool)
-                cell_cost = cost8 + lam_p2n
-            commit_rec(rec8, ly8, lx8, use2n)
-            # MPM context at 8-granularity: the 2Nx2N mode, or the
-            # bottom-right 4x4's mode when NxN wins.
-            commit_cell8(st["mode8"], torch.where(use2n, mode8b, last_m4),
-                         ly8, lx8)
-            commit_cell8(st["c8"], cell_cost, ly8, lx8)
-            ys["m8"][t, quad, z] = mode8b.to(torch.int8)
-            ys["q8"][t, quad, z] = q8b.to(torch.int16)
-            ys["s8"][t, quad, z] = (~use2n).to(torch.int8)
+
+    def ctb32(oy, ox, y32):
+        """The complete 32-rooted quadtree at pixel offset (oy, ox) of the
+        CTB (JAX package `encode_ctb32`, :1114-1278): (0, 0) at CTB 32, a
+        quadrant corner of the 64 CTB at CTB 64.  Writes its decisions
+        into the views `y32`; returns the 32 root's best cost (b,) and,
+        with `rate_evolve`, the bin counts of the decided tree."""
+        qsum = torch.zeros((b,), dtype=f32, device=dev)
+        qa4, qa8, qa16 = zeros8(), zeros8(), zeros8()
+        for quad in range(4):
+            qdx, qdy = quad & 1, quad >> 1
+            zb4, zb8 = zeros8(), zeros8()
+            for z in range(4):
+                ly8 = oy + (qdy * 2 + (z >> 1)) * 8
+                lx8 = ox + (qdx * 2 + (z & 1)) * 8
+                if plan["enable_nxn"]:
+                    # NxN: the four 4x4 PUs predict from the evolving
+                    # reconstruction; if 2Nx2N wins, its rec overwrites
+                    # them.
+                    cost_nxn = torch.zeros((b,), dtype=f32, device=dev)
+                    cnt_nxn = zeros8()
+                    for s4 in range(4):
+                        ly4 = ly8 + (s4 >> 1) * 4
+                        lx4 = lx8 + (s4 & 1) * 4
+                        c4, m4b, rec4, q4b, cn4 = encode_unit_b(4, ly4, lx4)
+                        commit_rec(rec4, ly4, lx4)
+                        cost_nxn = cost_nxn + c4
+                        cnt_nxn = cnt_nxn + cn4
+                        y32["m4"][quad, z, s4] = m4b.to(torch.int8)
+                        y32["q4"][quad, z, s4] = q4b.to(torch.int16)
+                    last_m4 = m4b
+                    # The 8x8 2Nx2N trial reads only outside the cell, so
+                    # running it after the 4x4 chain is exact.
+                    cost8, mode8b, rec8, q8b, cn8 = encode_unit_b(8, ly8,
+                                                                  lx8)
+                    use2n = cost8 + lam_p2n < cost_nxn + lam_pnxn
+                    cell_cost = torch.where(use2n, cost8 + lam_p2n,
+                                            cost_nxn + lam_pnxn)
+                else:
+                    cost8, mode8b, rec8, q8b, cn8 = encode_unit_b(8, ly8,
+                                                                  lx8)
+                    last_m4 = mode8b
+                    cnt_nxn = zeros8()
+                    use2n = torch.ones_like(cost8, dtype=torch.bool)
+                    cell_cost = cost8 + lam_p2n
+                commit_rec(rec8, ly8, lx8, use2n)
+                # MPM context at 8-granularity: the 2Nx2N mode, or the
+                # bottom-right 4x4's mode when NxN wins.
+                commit_cell8(st["mode8"], torch.where(use2n, mode8b, last_m4),
+                             ly8, lx8)
+                commit_cell8(st["c8"], cell_cost, ly8, lx8)
+                y32["m8"][quad, z] = mode8b.to(torch.int8)
+                y32["q8"][quad, z] = q8b.to(torch.int16)
+                y32["s8"][quad, z] = (~use2n).to(torch.int8)
+                if rate_evolve:
+                    u2 = use2n[:, None]
+                    zb4 = zb4 + torch.where(u2, 0, cnt_nxn)
+                    zb8 = zb8 + torch.where(u2, cn8, 0)
+
+            ly16, lx16 = oy + qdy * 16, ox + qdx * 16
+            cost16, mode16, rec16, qq16, cn16 = encode_unit_b(16, ly16, lx16)
+            # Fixed-order adds over the 2x2 cell costs.
+            csub = _box(st["c8"], p_cell, b, ly16 // 8, 2,
+                        t * cu8 + lx16 // 8 + OFF8, 2)
+            cost8s = (((csub[:, 0, 0] + csub[:, 0, 1]) + csub[:, 1, 0])
+                      + csub[:, 1, 1]) + lam_s1
+            cost16f = cost16 + lam_s0
+            use16 = cost16f < cost8s
+            qcost_q = torch.where(use16, cost16f, cost8s)
+            commit_rec(rec16, ly16, lx16, use16)
+            commit_mode_fill(mode16, ly16, lx16, 2, use16)
+            y32["m16"][quad] = mode16.to(torch.int8)
+            y32["q16"][quad] = qq16.to(torch.int16)
+            y32["s16"][quad] = (~use16).to(torch.int8)
             if rate_evolve:
-                u2 = use2n[:, None]
-                zb4 = zb4 + torch.where(u2, 0, cnt_nxn)
-                zb8 = zb8 + torch.where(u2, cn8, 0)
+                u16 = use16[:, None]
+                qa4 = qa4 + torch.where(u16, 0, zb4)
+                qa8 = qa8 + torch.where(u16, 0, zb8)
+                qa16 = qa16 + torch.where(u16, cn16, 0)
+            qsum = qsum + qcost_q
 
-        ly16, lx16 = qdy * 16, qdx * 16
-        cost16, mode16, rec16, qq16, cn16 = encode_unit_b(16, ly16, lx16)
-        # Fixed-order adds over the 2x2 cell costs.
-        csub = _box(st["c8"], p_cell, b, ly16 // 8, 2,
-                    t * cu8 + lx16 // 8 + OFF8, 2)
-        cost8s = (((csub[:, 0, 0] + csub[:, 0, 1]) + csub[:, 1, 0])
-                  + csub[:, 1, 1]) + lam_s1
-        cost16f = cost16 + lam_s0
-        use16 = cost16f < cost8s
-        qcost_q = torch.where(use16, cost16f, cost8s)
-        commit_rec(rec16, ly16, lx16, use16)
-        commit_mode_fill(mode16, ly16, lx16, 2, use16)
-        ys["m16"][t, quad] = mode16.to(torch.int8)
-        ys["q16"][t, quad] = qq16.to(torch.int16)
-        ys["s16"][t, quad] = (~use16).to(torch.int8)
+        # --- 32x32 candidate ---
+        cost32, mode32, rec32, qq32, cn32 = encode_unit_b(32, oy, ox)
+        cost_quads = qsum + lam_s1
+        cost32f = cost32 + lam_s0
+        use32 = cost32f < cost_quads
+        commit_rec(rec32, oy, ox, use32)
+        commit_mode_fill(mode32, oy, ox, 4, use32)
+        y32["m32"][...] = mode32.to(torch.int8)
+        y32["q32"][...] = qq32.to(torch.int16)
+        y32["s32"][...] = (~use32).to(torch.int8)
+        cnt = None
         if rate_evolve:
-            u16 = use16[:, None]
-            qa4 = qa4 + torch.where(u16, 0, zb4)
-            qa8 = qa8 + torch.where(u16, 0, zb8)
-            qa16 = qa16 + torch.where(u16, cn16, 0)
-        qsum = qsum + qcost_q
+            u32 = use32[:, None]
+            cnt = (torch.where(u32, 0, qa4), torch.where(u32, 0, qa8),
+                   torch.where(u32, 0, qa16), torch.where(u32, cn32, 0))
+        return torch.where(use32, cost32f, cost_quads), cnt
 
-    # --- 32x32 candidate ---
-    cost32, mode32, rec32, qq32, cn32 = encode_unit_b(32, 0, 0)
-    cost_quads = qsum + lam_s1
-    cost32f = cost32 + lam_s0
-    use32 = cost32f < cost_quads
-    commit_rec(rec32, 0, 0, use32)
-    commit_mode_fill(mode32, 0, 0, 4, use32)
-    ys["m32"][t] = mode32.to(torch.int8)
-    ys["q32"][t] = qq32.to(torch.int16)
-    ys["s32"][t] = (~use32).to(torch.int8)
+    if ctb == 32:
+        _, cnt = ctb32(0, 0, {k: ys[k][t] for k in _KEYS32 if k in ys})
+    else:
+        csum64 = torch.zeros((b,), dtype=f32, device=dev)
+        for q64 in range(4):
+            c32, _ = ctb32((q64 >> 1) * 32, (q64 & 1) * 32,
+                           {k: ys[k][t, q64] for k in _KEYS32 if k in ys})
+            csum64 = csum64 + c32
+        mode64, rec64, qq64, use64 = _candidate64(
+            plan, dp, st, t, p_cell, mode_bits_b(0, 0), csum64 + lam_s1,
+            lam_s0)
+        commit_rec(rec64, 0, 0, use64)
+        commit_mode_fill(mode64, 0, 0, 8, use64)
+        ys["m64"][t] = mode64.to(torch.int8)
+        ys["q64"][t] = qq64.to(torch.int16)
+        ys["s64"][t] = (~use64).to(torch.int8)
 
     if rate_evolve:
-        u32 = use32[:, None]
-        fb4 = torch.where(u32, 0, qa4)
-        fb8 = torch.where(u32, 0, qa8)
-        fb16 = torch.where(u32, 0, qa16)
-        fb32 = torch.where(u32, cn32, 0)
+        fb4, fb8, fb16, fb32 = cnt
         allb = fb4 + fb8 + fb16 + fb32
         upd = torch.cat(
             [fb4[:, 0:2], fb8[:, 0:2], fb16[:, 0:2], fb32[:, 0:2],
@@ -781,6 +842,116 @@ def _step(plan, dp, st, ys, t, impl):
                         dim=1)
         _commit(rs_sk, blk, p_cur, 0, 0)
 
+
+def _candidate64(plan, dp, st, t, p_cell, mbits, split_cost, lam_s0):
+    """The 64x64 2Nx2N candidate of every (slot, frame) CTB on diagonal t
+    (JAX package :1312-1437), in plain PyTorch on the plan's device: one
+    signalled mode and four forced TU32s in z-order, each mode with its
+    own evolving 64x64 patch, as HM reconstructs an intra CU64 TU by TU.
+    A TU's references are mixed from the mode's patch inside the CU and
+    the committed reconstruction outside (`_cand64_tables`), filtered per
+    mode (`unit_fused.ref_columns`), predicted per mode, transformed,
+    quantised (`unit_fused.rdoq_lite`, the JAX package's `quantize_rd`)
+    and reconstructed (`unit_fused.reconstruct`); cost64 adds SSE and
+    lambda * TU bits TU by TU, then lambda * mode bits.  The PNN modes are
+    barred at 64 (substitution's mode 18 when 32 has a model, PNNS).
+    `split_cost` (b,) is the four quadrants' cost plus lambda * split1.
+    Returns (mode64 (b,) int64, rec64, q64 (b, 64, 64) i32, use64 (b,)
+    bool); the caller commits."""
+    c, tc = dp["c64"], dp["trial"][32]
+    b, M = plan["b_eff"], plan["n_modes"]
+    nn, ctb = 1024, plan["ctb"]
+    f32 = torch.float32
+    dev = st["recon"].device
+    floordiv = unit_fused._floordiv2
+    LAM = unit_fused._f32(plan["lam"])
+    S = c["out_idx"].shape[-1]
+    RRp = tc["RRp"]
+    recon_flat = st["recon"].view(-1)
+    patch = torch.zeros((b, M, 64, 64), dtype=torch.int32, device=dev)
+    qall = torch.zeros((b, M, 64, 64), dtype=torch.int32, device=dev)
+    cost = torch.zeros((1, M * b), dtype=f32, device=dev)
+    rr = torch.zeros((8, M * b), dtype=torch.int32, device=dev)
+    p2 = tc["P2"].view(-1, nn, RRp)[:M]
+    for tz in range(4):
+        tdy, tdx = (tz >> 1) * 32, (tz & 1) * 32
+        out_val = torch.where(c["okd"][t, tz],
+                              recon_flat[c["out_idx"][t, tz]], 128)
+        in_val = torch.gather(patch.view(b, M, 4096), 2,
+                              c["in_idx"][t, tz][:, None, :].expand(b, M, S))
+        refs = torch.where(c["inside"][t, tz][:, None, :], in_val,
+                           out_val[:, None, :])                   # (b, M, S)
+        comb = torch.nn.functional.pad(
+            refs.permute(2, 1, 0).reshape(S, M * b).to(f32),
+            (0, 0, 0, tc["Rp"] - S))                  # lane m * b + j
+        comb2 = unit_fused.ref_columns(tc, comb)
+        blocks = floordiv(torch.bmm(p2, comb2.view(RRp, M, b).permute(
+            1, 0, 2)), 6)                                         # (M, nn, b)
+        dc = floordiv(tc["dcw"][0:1] @ comb2, tc["dc_shift"]).view(M, b)
+        blocks[1] = dc[1][None, :]
+        preds = blocks.permute(1, 0, 2).reshape(nn, M * b)
+        orig = _box(st["frame"], p_cell, b, tdy, 32, t * ctb + tdx
+                    + plan["OFF"], 32).reshape(b, nn)[:, tc["pp"]].T
+        orig_rep = orig.repeat(1, M)
+        coeff = unit_fused._forward_plain(tc, orig_rep.to(f32) - preds)
+        q, tu_bits, _, _ = unit_fused.rdoq_lite(tc, coeff, rr, M)
+        rec = unit_fused.reconstruct(tc, preds, q)
+        d = rec - orig_rep
+        sse = unit_fused._i32_sum(d * d, 0).to(f32)
+        cost = cost + sse + LAM * tu_bits
+        ipp = tc["ipp"]
+        patch[:, :, tdy:tdy + 32, tdx:tdx + 32] = \
+            rec[ipp].view(32, 32, M, b).permute(3, 2, 0, 1)
+        qall[:, :, tdy:tdy + 32, tdx:tdx + 32] = \
+            q[ipp].view(32, 32, M, b).permute(3, 2, 0, 1)
+    cost64 = cost.view(M, b).T + LAM * mbits                       # (b, M)
+    big = torch.tensor(3e38, dtype=f32, device=dev)
+    ids = torch.arange(M, device=dev)[None]
+    if plan["policy"] == "substitution" and 32 in plan["nn_widths"]:
+        cost64 = torch.where(ids == 18, big, cost64)
+    if M == 36:
+        cost64 = torch.where(ids == enc_mod.PNNS_MODE, big, cost64)
+    best = torch.argmin(cost64, dim=1)          # the first minimum
+    rows = torch.arange(b, device=dev)
+    use64 = cost64[rows, best] + lam_s0 < split_cost
+    return best, patch[rows, best], qall[rows, best], use64
+
+
+def _cand64_tables(plan, device):
+    """Static reference tables of the 64 candidate's four TU32s (JAX
+    package :1358-1377; the n = 32 triplet classes), per (step, TU, slot,
+    sample): `out_idx`, the flat index into the reconstruction planes
+    (n_planes * NF, PH, W_sk) of the sample outside the CU; `okd`, false
+    where it is the DC-128 fill; `inside`, true where the sample lies
+    inside the CU; `in_idx`, its index in the 64x64 patch.  Slots off the
+    frame take clipped positions, as the JAX package's gathers clip."""
+    ctb, NF, OFF, WIN = plan["ctb"], plan["n_frames"], plan["OFF"], \
+        plan["WIN"]
+    PH, W_sk = plan["PH"], plan["W_sk"]
+    cmap, ctab = plan["size_consts"][32]["cmap"], \
+        plan["size_consts"][32]["ctab"]
+    by, bx = _slot_schedule(plan)                          # (T, b)
+    f_ids = np.tile(np.arange(NF), plan["b_max"])[None, :, None]
+    T = plan["n_steps"]
+    tabs = {k: [] for k in ("out_idx", "okd", "inside", "in_idx")}
+    for tz in range(4):
+        by32 = np.clip(by * 2 + (tz >> 1), 0, plan["height"] // 32 - 1)
+        bx32 = np.clip(bx * 2 + (tz & 1), 0, plan["width"] // 32 - 1)
+        trip = ctab[cmap[0, by32, bx32]].astype(np.int64)  # (T, b, 3, S)
+        dpl, lys, rxs = trip[:, :, 0], trip[:, :, 1], trip[:, :, 2]
+        okd = dpl > -5
+        plane = np.clip(by[:, :, None] + ROW0 + dpl, 0,
+                        plan["n_planes"] - 1) * NF + f_ids
+        col = np.arange(T)[:, None, None] * ctb + np.clip(rxs, 0, WIN - 1)
+        iy = dpl * 64 + lys
+        ix = rxs - OFF - 2 * ctb * dpl
+        inside = okd & (iy >= 0) & (iy < 64) & (ix >= 0) & (ix < 64)
+        tabs["out_idx"].append((plane * PH + lys) * W_sk + col)
+        tabs["okd"].append(okd)
+        tabs["inside"].append(inside)
+        tabs["in_idx"].append(np.clip(iy, 0, 63) * 64 + np.clip(ix, 0, 63))
+    return {k: torch.from_numpy(np.ascontiguousarray(np.stack(v, 1))).to(
+        device) for k, v in tabs.items()}
 
 def run(plan, dp, frames_u8, impl="kernel"):
     """The device half of the encode: returns (recon (n_frames, H, W)
@@ -815,8 +986,9 @@ def run(plan, dp, frames_u8, impl="kernel"):
         st["rs"] = torch.zeros((plan["n_planes"] * NF, 8, 16), dtype=i32,
                                device=dev)
     ys = _new_ys(plan, dev)
-    for t in range(plan["n_steps"]):
-        _step(plan, dp, st, ys, t, impl)
+    with _exact_f32():
+        for t in range(plan["n_steps"]):
+            _step(plan, dp, st, ys, t, impl)
     recon = torch.stack([torch.cat([
         st["recon"][(ROW0 + by) * NF + f, :ctb,
                     OFF + 2 * ctb * by:OFF + 2 * ctb * by + width]
@@ -840,16 +1012,16 @@ def _frame_ys(ys, n_frames, f):
 
 def _assemble_arrays(ys, height, width, ctb=CTB, t_offset=0):
     """Stacked per-step outputs -> the decided grids (m8, q8, s8, m4, q4,
-    m16, q16, s16, m32, q32, s32), CTB 32 (JAX package :1531-1613)."""
-    if ctb != 32:
-        raise NotImplementedError("the port assembles CTB-32 grids")
+    m16, q16, s16, m32, q32, s32), and at CTB 64 also (m64, q64, s64)
+    (JAX package :1531-1613)."""
     ys = {k: np.asarray(v) for k, v in ys.items()}
     h4, w4 = height // 4, width // 4
     h8, w8 = height // 8, width // 8
     h16, w16 = height // 16, width // 16
     nby, nbx = height // 32, width // 32
-    n_steps, b_max = ys["m32"].shape
-    by, bx, ok = _schedule(nby, nbx, b_max, n_steps, t_offset)
+    sby, sbx = height // ctb, width // ctb
+    n_steps, b_max = ys["m64" if ctb == 64 else "m32"].shape
+    by, bx, ok = _schedule(sby, sbx, b_max, n_steps, t_offset)
 
     m8 = np.zeros((h8, w8), np.int32)
     q8 = np.zeros((h8, w8, 8, 8), np.int32)
@@ -862,34 +1034,51 @@ def _assemble_arrays(ys, height, width, ctb=CTB, t_offset=0):
     m32 = np.zeros((nby, nbx), np.int32)
     q32 = np.zeros((nby, nbx, 32, 32), np.int32)
     s32 = np.zeros((nby, nbx), np.int32)
-
     has_nxn = "m4" in ys
-    for quad in range(4):
-        qdx, qdy = quad & 1, quad >> 1
-        for z in range(4):
-            zdx2 = qdx * 2 + (z & 1)
-            zdy2 = qdy * 2 + (z >> 1)
-            b8y = (by * 4 + zdy2)[ok]
-            b8x = (bx * 4 + zdx2)[ok]
-            m8[b8y, b8x] = ys["m8"][:, quad, z][ok]
-            q8[b8y, b8x] = ys["q8"][:, quad, z][ok]
-            s8[b8y, b8x] = ys["s8"][:, quad, z][ok]
-            if has_nxn:
-                for s4 in range(4):
-                    sdx, sdy = s4 & 1, s4 >> 1
-                    b4y = (by * 4 + zdy2) * 2 + sdy
-                    b4x = (bx * 4 + zdx2) * 2 + sdx
-                    m4[b4y[ok], b4x[ok]] = ys["m4"][:, quad, z, s4][ok]
-                    q4[b4y[ok], b4x[ok]] = ys["q4"][:, quad, z, s4][ok]
-        b16y = (by * 2 + qdy)[ok]
-        b16x = (bx * 2 + qdx)[ok]
-        m16[b16y, b16x] = ys["m16"][:, quad][ok]
-        q16[b16y, b16x] = ys["q16"][:, quad][ok]
-        s16[b16y, b16x] = ys["s16"][:, quad][ok]
-    m32[by[ok], bx[ok]] = ys["m32"][ok]
-    q32[by[ok], bx[ok]] = ys["q32"][ok]
-    s32[by[ok], bx[ok]] = ys["s32"][ok]
-    return (m8, q8, s8, m4, q4, m16, q16, s16, m32, q32, s32)
+
+    def fill32(sub, cby, cbx):
+        """One 32-root bundle of outputs at 32-grid coords (n_steps,
+        b_max)."""
+        for quad in range(4):
+            qdx, qdy = quad & 1, quad >> 1
+            for z in range(4):
+                zdx2 = qdx * 2 + (z & 1)
+                zdy2 = qdy * 2 + (z >> 1)
+                b8y = (cby * 4 + zdy2)[ok]
+                b8x = (cbx * 4 + zdx2)[ok]
+                m8[b8y, b8x] = sub["m8"][:, quad, z][ok]
+                q8[b8y, b8x] = sub["q8"][:, quad, z][ok]
+                s8[b8y, b8x] = sub["s8"][:, quad, z][ok]
+                if has_nxn:
+                    for s4 in range(4):
+                        sdx, sdy = s4 & 1, s4 >> 1
+                        b4y = (cby * 4 + zdy2) * 2 + sdy
+                        b4x = (cbx * 4 + zdx2) * 2 + sdx
+                        m4[b4y[ok], b4x[ok]] = sub["m4"][:, quad, z, s4][ok]
+                        q4[b4y[ok], b4x[ok]] = sub["q4"][:, quad, z, s4][ok]
+            b16y = (cby * 2 + qdy)[ok]
+            b16x = (cbx * 2 + qdx)[ok]
+            m16[b16y, b16x] = sub["m16"][:, quad][ok]
+            q16[b16y, b16x] = sub["q16"][:, quad][ok]
+            s16[b16y, b16x] = sub["s16"][:, quad][ok]
+        m32[cby[ok], cbx[ok]] = sub["m32"][ok]
+        q32[cby[ok], cbx[ok]] = sub["q32"][ok]
+        s32[cby[ok], cbx[ok]] = sub["s32"][ok]
+
+    grids = (m8, q8, s8, m4, q4, m16, q16, s16, m32, q32, s32)
+    if ctb == 32:
+        fill32(ys, by, bx)
+        return grids
+    for q64i in range(4):
+        fill32({k: v[:, q64i] for k, v in ys.items() if k in _KEYS32},
+               by * 2 + (q64i >> 1), bx * 2 + (q64i & 1))
+    m64 = np.zeros((sby, sbx), np.int32)
+    q64 = np.zeros((sby, sbx, 64, 64), np.int32)
+    s64 = np.zeros((sby, sbx), np.int32)
+    m64[by[ok], bx[ok]] = ys["m64"][ok]
+    q64[by[ok], bx[ok]] = ys["q64"][ok]
+    s64[by[ok], bx[ok]] = ys["s64"][ok]
+    return grids + (m64, q64, s64)
 
 
 def _serialize_grids(grids, *, width, height, qp, policy, ctb):
@@ -905,12 +1094,14 @@ def _serialize_grids(grids, *, width, height, qp, policy, ctb):
 
 def _arrays_to_result(frame_uint8, qp, arrays, policy, serialize,
                       ctb: int = CTB):
-    """Decided grids -> CuNode trees (+ CABAC serialization), CTB 32
-    (JAX package :1663-1773)."""
-    (recon, m8, q8, s8, m4, q4, m16, q16, s16, m32, q32, s32) = arrays
+    """Decided grids -> CuNode trees (+ CABAC serialization) (JAX package
+    :1663-1773).  At CTB 64 the 32 level sits at depth 1 under either an
+    unsplit 64 CU (one PU, four forced TU32s) or a split root."""
+    (recon, m8, q8, s8, m4, q4, m16, q16, s16, m32, q32, s32) = arrays[:12]
     h, w = frame_uint8.shape
     trees = []
     mode_map = np.full((h // 4, w // 4), -1, np.int32)
+    d0 = 1 if ctb == 64 else 0      # depth of the 32 level
 
     def leaf(x, y, n, mode, q, depth=0):
         cbf = 1 if q.any() else 0
@@ -939,27 +1130,51 @@ def _arrays_to_result(frame_uint8, qp, arrays, policy, serialize,
     def tree32(x, y):
         by, bx = y // 32, x // 32
         if not s32[by, bx]:
-            return leaf(x, y, 32, m32[by, bx], q32[by, bx])
-        root = enc_mod.CuNode(x, y, 32, 0, split=True)
+            return leaf(x, y, 32, m32[by, bx], q32[by, bx], d0)
+        root = enc_mod.CuNode(x, y, 32, d0, split=True)
         for quad in range(4):
             qx = x + (quad & 1) * 16
             qy = y + (quad >> 1) * 16
             b16y, b16x = qy // 16, qx // 16
             if not s16[b16y, b16x]:
-                child = leaf(qx, qy, 16, m16[b16y, b16x], q16[b16y, b16x])
-                child.depth = 1
+                child = leaf(qx, qy, 16, m16[b16y, b16x], q16[b16y, b16x],
+                             d0 + 1)
             else:
-                child = enc_mod.CuNode(qx, qy, 16, 1, split=True)
+                child = enc_mod.CuNode(qx, qy, 16, d0 + 1, split=True)
                 for z in range(4):
                     g = leaf8(qx + (z & 1) * 8, qy + (z >> 1) * 8)
-                    g.depth = 2
+                    g.depth = d0 + 2
                     child.children.append(g)
             root.children.append(child)
         return root
 
-    for by in range(h // 32):
-        for bx in range(w // 32):
-            trees.append(tree32(bx * 32, by * 32))
+    def tree64(x, y):
+        m64, q64, s64 = arrays[12:]
+        by, bx = y // 64, x // 64
+        if s64[by, bx]:
+            root = enc_mod.CuNode(x, y, 64, 0, split=True)
+            root.children = [tree32(x + (quad & 1) * 32,
+                                    y + (quad >> 1) * 32)
+                             for quad in range(4)]
+            return root
+        # 64x64 2Nx2N PU over the forced TU32 split (the largest TU is
+        # 32: the serializer and the decoder infer the split).
+        mode = int(m64[by, bx])
+        mode_map[y // 4:(y + 64) // 4, x // 4:(x + 64) // 4] = mode
+        tus = []
+        for tz in range(4):
+            ty, tx = (tz >> 1) * 32, (tz & 1) * 32
+            tq = q64[by, bx, ty:ty + 32, tx:tx + 32]
+            cbf = 1 if tq.any() else 0
+            tus.append(enc_mod.TuRecord(x + tx, y + ty, 32, cbf,
+                                        tq if cbf else None))
+        return enc_mod.CuNode(x, y, 64, 0, split=False,
+                              pus=[enc_mod.PuRecord(x, y, 64, mode, tus)])
+
+    tree = tree64 if ctb == 64 else tree32
+    for by in range(h // ctb):
+        for bx in range(w // ctb):
+            trees.append(tree(bx * ctb, by * ctb))
 
     bitstream = b""
     if serialize:
@@ -976,13 +1191,21 @@ def _arrays_to_result(frame_uint8, qp, arrays, policy, serialize,
     )
 
 
-def _prepare_device(device):
-    device = torch.device(device)
-    if device.type == "cuda":
-        # The plain version's float32 products must stay exact.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
+@contextlib.contextmanager
+def _exact_f32():
+    """cuBLAS and cuDNN in float32, not TF32, for the duration of the
+    block: on the card the plain versions' float32 products of small
+    integers must stay exact.  The caller's flags are back afterwards,
+    also when the block raises."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def encode_arrays_wavefront2(frame_uint8: np.ndarray, qp: int, *,
@@ -1010,7 +1233,7 @@ def encode_arrays_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
     """The device half of `encode_frames_wavefront2_batch`: the (B, H, W)
     frames through one B-frame plan; returns one (recon (H, W) uint8,
     grids) per frame."""
-    device = _prepare_device(device)
+    device = torch.device(device)
     bundle = getattr(pnn, "bundle", pnn)
     frames = np.asarray(frames_uint8)
     nf, h, w = frames.shape
@@ -1041,6 +1264,59 @@ def encode_frame_wavefront2(frame_uint8: np.ndarray, qp: int, *,
         device=device)
     return _arrays_to_result(frame_uint8, qp, (recon,) + grids, policy,
                              serialize, ctb=ctb)
+
+
+def encode_frame_wavefront2_hm(frame_uint8: np.ndarray, qp: int, *,
+                               loop_filters: bool = True,
+                               lam_scale: float = 1.0,
+                               policy: str = "regular", pnn=None,
+                               ctb: int = CTB, enable_nxn: bool = True,
+                               rate_evolve: bool = False, device="cuda"):
+    """Wavefront device encode -> standard Annex-B HEVC stream (JAX package
+    :1951-1999), CTB 32 or 64.
+
+    With `loop_filters`, deblocking (`codec/deblock.deblock_luma`, native
+    on the host) and SAO (`codec/sao`, estimated against the source with
+    HM's lambda) run on the decided reconstruction, as normative post-passes
+    for All-Intra; a decoded-picture-hash SEI of the final picture is
+    embedded.  Returns (annexb_stream, EncodeResult) with the final
+    reconstruction, the stream and its bits.  NN-policy streams use the
+    reference's extended syntax (substitution: PNN semantics on mode 18;
+    switch: a leading PNNS bin)."""
+    res = encode_frame_wavefront2(
+        frame_uint8, qp, serialize=False, lam_scale=lam_scale,
+        policy=policy, pnn=pnn, ctb=ctb, enable_nxn=enable_nxn,
+        rate_evolve=rate_evolve, device=device)
+    h, w = frame_uint8.shape
+    sao_grid = None
+    if loop_filters:
+        # Unit-granular TU ids from the decided trees (the deblocking edge
+        # rule).
+        tu_ids = np.zeros((h // 4, w // 4), np.int32)
+        tid = 0
+        for node in res.ctu_trees:
+            stack = [node]
+            while stack:
+                nd = stack.pop()
+                if nd.split:
+                    stack.extend(nd.children)
+                    continue
+                for pu in nd.pus:
+                    for tu in pu.tus:
+                        tu_ids[tu.y // 4:(tu.y + tu.n) // 4,
+                               tu.x // 4:(tu.x + tu.n) // 4] = tid
+                        tid += 1
+        final = deblock.deblock_luma(res.reconstruction, tu_ids, qp)
+        sao_grid = sao_mod.estimate_frame(frame_uint8, final, ctb,
+                                          rdo.lambda_for_qp(qp))
+        res.reconstruction = sao_mod.apply_sao(final, sao_grid, ctb)
+    stream = hm_encoder.assemble_hm_stream(
+        res, sao_enabled=loop_filters, deblocking=loop_filters,
+        sign_hiding=True, transform_skip=False, max_tu_depth=0,
+        sao_grid=sao_grid, ctu_size=ctb)
+    res.bitstream = stream
+    res.num_bits = len(stream) * 8
+    return stream, res
 
 
 def encode_frames_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
@@ -1093,7 +1369,7 @@ def encode_stream_wavefront2(frames_iter, qp: int, *, batch: int = 16,
     `workers` > 0 fans the per-frame assembly and pack over a `spawn`
     process pool, which is shut down when the generator ends or is
     closed."""
-    device = _prepare_device(device)
+    device = torch.device(device)
     bundle = getattr(pnn, "bundle", pnn)
     pool = None
     if workers > 0 and not build_trees:

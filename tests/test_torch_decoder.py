@@ -12,7 +12,8 @@ whole decodes (on the CPU): the port's regular, switch and substitution
 streams of the 128x128 natural crop at QP 32 (frozen singles zoo, which
 codes PNN PUs there), single-frame and from a 2-frame batch, decode to
 the encoder's reconstruction and to the JAX decoder's reconstruction and
-mode map.  A header with deblocking or SAO on raises.
+mode map.  A header with deblocking or SAO set decodes as the JAX decoder
+decodes it (`test_torch_loop_filters.py` holds the loop filters).
 """
 
 import os
@@ -415,12 +416,21 @@ def test_decoded_nn_streams_code_pnn_pus(bundles, streams, case):
 
 @pytest.mark.parametrize("flag", ["deblocking", "has_sao"])
 def test_loop_filter_headers_raise(streams, flag):
+    """A header with deblocking or SAO on no longer raises: the decoder
+    runs the loop filter as the JAX decoder does (SAO parameters read
+    after the last CU, deblocking on the TU map), on the same bytes."""
     payload = streams["regular"].bitstream[struct.calcsize("<4sBBBBBBBBBII"):]
     header = t_encoder.stream_header(width=128, height=128, qp=QP,
                                      policy="regular", ctu_size=32,
                                      sign_hiding=True, **{flag: True})
-    with pytest.raises(NotImplementedError, match="A7"):
-        t_decoder.decode_frame(header + payload, device="cpu")
+    got = t_decoder.decode_frame(header + payload, device="cpu")
+    want = j_decoder.decode_frame(header + payload)
+    np.testing.assert_array_equal(got.reconstruction,
+                                  np.asarray(want.reconstruction))
+    np.testing.assert_array_equal(got.mode_map, want.mode_map)
+    if flag == "deblocking":
+        assert not np.array_equal(got.reconstruction,
+                                  streams["regular"].reconstruction)
 
 
 def test_nn_stream_needs_a_predictor(streams):

@@ -239,11 +239,52 @@ def test_box_refuses_to_clamp():
             t_wavefront2._box(buf, *args)
 
 
-@pytest.mark.parametrize("kwargs", [dict(policy="switch"), dict(ctb=64),
-                                    dict(ctb=64, n_frames=2)])
+@pytest.mark.parametrize("kwargs", [dict(policy="switch"),
+                                    dict(ctb=64, rate_evolve=True),
+                                    dict(ctb=16)])
 def test_unported_configs_raise(kwargs):
-    """CTB 64 is not ported, batched or not; an NN policy without a PNN
-    bundle is refused, as the JAX package refuses it."""
-    want = ValueError if "policy" in kwargs else NotImplementedError
+    """Refused as the JAX package refuses them: an NN policy without a PNN
+    bundle and a CTB other than 32 or 64 (ValueError), rate evolution at
+    CTB 64 (NotImplementedError: the JAX package has none there)."""
+    want = NotImplementedError if "rate_evolve" in kwargs else ValueError
     with pytest.raises(want):
         t_wavefront2._build_wavefront2(64, 128, QP, **kwargs)
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, True),
+                                   (True, False), (False, False)])
+def test_encode_keeps_the_callers_tf32_flags(monkeypatch, flags):
+    """The device half runs with TF32 off for cuBLAS and cuDNN (the plain
+    versions' float32 products must stay exact) and gives the caller's
+    flags back when it returns and when it raises."""
+    frame = frames()["synth64x96"][:32, :64]
+    seen = []
+    step = t_wavefront2._step
+
+    def spy(*args):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return step(*args)
+
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        monkeypatch.setattr(t_wavefront2, "_step", spy)
+        t_wavefront2.encode_frame_wavefront2(frame, QP, device="cpu")
+        assert seen and set(seen) == {(False, False)}
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+
+        def boom(*args):
+            raise RuntimeError("step failed")
+
+        monkeypatch.setattr(t_wavefront2, "_step", boom)
+        with pytest.raises(RuntimeError, match="step failed"):
+            t_wavefront2.encode_frame_wavefront2(frame, QP, device="cpu")
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
