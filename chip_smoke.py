@@ -15,7 +15,10 @@ output with deblocking and SAO (`encode_frame_wavefront2_hm`) at CTB 64
 and 32, each stream decoded by stock HM-16.15; and the float PNN
 prediction path (Tables I-V,
 `evaluation/prediction_comparison.compare_on_channels`) on the 1080p
-frame's luma with the six float singles of the chip copy.  It holds each
+frame's luma with the six float singles of the chip copy; and the host
+RDO codec behind the rate-distortion results (`FrameEncoder`, its Annex-B
+output in luma and 4:2:0, the HM-syntax decoder, `compute_rate_psnr`)
+with the whole w4-w64 quantized zoo and the float fallback.  It holds each
 hand-written kernel against its plain PyTorch version.  Phases, each
 printing one line with its seconds:
 
@@ -32,7 +35,8 @@ printing one line with its seconds:
      residuals; n = 4 and 8 also at 1 slot), also with a PNN prediction
      under `sub18` and `append` (31 slots and 1); the merger for M = 32,
      64, 128, 256 maps (1, 17 and 31 slots, random inputs and inputs at
-     the PNN's caps): every output exactly equal.  The float
+     the PNN's caps), and M = 512 (the w64 models; 1 and 31 slots):
+     every output exactly equal.  The float
      FC chain at w = 4, 8, float32 and bfloat16 weights, N = 1, 7, 127,
      128, 129, 200, 256, 1024, 2048 (the tiling's and K splits' edges; max
      error <= 1e-4 of max |plain|); the float merger at M = 32 ... 512,
@@ -118,12 +122,40 @@ printing one line with its seconds:
      2/N); then `compare_on_channels` on the 1080p luma with 2048
      positions and the four default masks: PSNR rows, seconds, and
      kernel launches, which must equal the forwards' chunk calls
+ 18  (runs before 8) the host RDO codec (`codec/encoder.FrameEncoder`,
+     HM-style RDO with RDOQ, CTB 64, deblocking and SAO, host numpy; the
+     PNN forwards on the card one PU at a time): `encode_frame_hm` of the
+     natural 128x128 and the 96x160 frame of tests/golden_hm, regular,
+     switch and substitution with the whole quantized zoo (w4-w64, singles
+     at QP 27, pairs at QP 37), against tests/golden_torch/host_codec.json
+     (stream, reconstruction, mode map), each decoded back by the port's
+     decoder, with seconds, PNN forwards, ms per forward, integer merger
+     launches (== conv forwards, M = 512 for w64) and the share of the
+     wall spent inside forwards (host time: context upload, forward,
+     read-back); the Annex-B streams of `encode_frame_hm` (regular,
+     switch) and `encode_frame_hm_420` (regular, the stored chroma planes)
+     against the digests, given back by the port's `decode_hm_stream`
+     (native parser) and the regular ones by stock HM ("(OK)", equal
+     planes); the port's `decode_hm_stream` on every stock-HM stream of
+     tests/golden_hm; the RD sweep over QP 22-37 for regular and switch
+     (Annex-B rate): `compute_rate_psnr` at QP 22, the other points from
+     the Annex-B streams above, decoded by `decode_hm_stream`, and
+     `bd_rate_low_high_full`, equal to the captured numbers; and the float
+     fallback (the float models of manifest_trained.txt only, widths 4-32,
+     a switch encode at QP 37): FC and float merger launches at N = 1 (==
+     4 x FC forwards and the conv forwards), every forward against its
+     plain version (<= 1e-4 of max |plain|, the pixels near a tie counted
+     by unit), the round trip exact, and the stream, reconstruction and
+     mode map equal to the JAX package's where no coded PNN unit hit a
+     tie
   8  per kernel, on phase-4, phase-6 and phase-9 inputs, and on the batched
      paths' (the trial at 124 slots from phase 10, the merger at N = 124
      from phase 11 and at N = 1 from phase 13's decode), CTB 64's (the
      trial at 16 slots from phase 14) and the quantize path's (phase 17:
      one FC layer at N = 256 for K = 80, 320 and 1200, the float merger at
-     N = 256 for M = 32 ... 256, float32 weights): launches, max abs
+     N = 256 for M = 32 ... 256, float32 weights) and the host codec's
+     (phase 18: the integer merger at M = 512, N = 1; the FC chains and
+     the float merger at N = 1): launches, max abs
      error, ms per call (CUDA events, calls queued back to back; where
      there is a library call, the kernel and it timed in turns, kernel,
      library, library, kernel, ...; and the same queued behind a spin of
@@ -153,6 +185,7 @@ nvidia-smi and HM's decoder (`artifacts/hm_bin/TAppDecoderStatic`).
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import json
 import os
@@ -277,9 +310,9 @@ def ctb64_frames():
     return {"smooth64x128": smooth, "natural128": natural}
 
 
-def hm_decode(stream, h, w, tmp):
+def run_hm_decoder(stream, tmp):
     """Stock HM-16.15's decode of an Annex-B stream: (its stdout, the
-    decoded 8-bit luma (h, w))."""
+    decoded 8-bit samples, flat)."""
     bs, yuv = os.path.join(tmp, "hm.bin"), os.path.join(tmp, "hm.yuv")
     with open(bs, "wb") as f:
         f.write(stream)
@@ -288,10 +321,16 @@ def hm_decode(stream, h, w, tmp):
     if proc.returncode != 0:
         raise AssertionError(f"TAppDecoderStatic exited {proc.returncode}: "
                              f"{proc.stdout[-500:]} {proc.stderr[-500:]}")
-    luma = np.fromfile(yuv, np.uint8)
+    return proc.stdout, np.fromfile(yuv, np.uint8)
+
+
+def hm_decode(stream, h, w, tmp):
+    """Stock HM-16.15's decode of a 4:0:0 stream: (its stdout, the decoded
+    8-bit luma (h, w))."""
+    out, luma = run_hm_decoder(stream, tmp)
     if luma.size != h * w:
         raise AssertionError(f"HM wrote {luma.size} samples, want {h * w}")
-    return proc.stdout, luma.reshape(h, w)
+    return out, luma.reshape(h, w)
 
 
 def v1_frame(spec):
@@ -437,6 +476,11 @@ def max_abs_err(a, b):
         d = (x.double() - y.double()).abs().max().item() if x.numel() else 0
         err = max(err, d)
     return err
+
+
+def check_captured(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: {got} != captured {want}")
 
 
 def check_close(got, want, tol, what):
@@ -607,6 +651,17 @@ def main():
                                  f"extreme={extreme}")
             say(f"merger M={m}: kernel == plain on 1, 17 and {b} slots "
                 f"(random, caps)")
+        for slots in (1, b):        # the w64 models' merger, M = 512
+            for extreme in (False, True):
+                x, w, bb = [torch.from_numpy(a).to(dev) for a in
+                            merger_inputs(rng, 512, slots, extreme=extreme)]
+                got = merger_int.merger_int_forward(x, w, bb)
+                want = merger_int.merger_int_forward(x, w, bb, impl="plain")
+                torch.cuda.synchronize()
+                assert_equal(got, want, f"merger M=512 N={slots} "
+                             f"extreme={extreme}")
+        say(f"merger M=512: kernel == plain on 1 and {b} slots (random, "
+            f"the w64 caps)")
         for w in (4, 8):
             for dtype in (torch.float32, torch.bfloat16):
                 ws, bs = fc_layers(rng, w, dtype, dev)
@@ -1331,12 +1386,12 @@ def main():
                     launched.values()) != want_launches:
                 raise AssertionError(f"quantize {name}: {rep}, kernel "
                                      f"launches {launched}")
-            for (kind, size), v in launched.items():
-                key = ("fc", size[0]) if kind == "fc" else ("fmerger", size)
+            for (op, size), v in launched.items():
+                key = ("fc", size[0]) if op == "fc" else ("fmerger", size)
                 q_launches[key] = q_launches.get(key, 0) + v
             errs = []
-            for kind, x, ws, bs, act in q_calls:
-                if kind == "fc":
+            for op, x, ws, bs, act in q_calls:
+                if op == "fc":
                     call = lambda impl: orig_qfc(x, ws, bs, impl=impl)
                     key, tol = ("fc", ws[0].shape[0]), 1e-4
                 else:
@@ -1472,6 +1527,10 @@ def main():
             say(f"{name} 1080p compare_on_channels under the profiler: "
                 f"device busy {busy_ms} ms; by time: {top}")
 
+    # ---- phase 18 (before 8): the host RDO codec ----
+    with Phase("18 host codec"):
+        host_launches = host_codec_phase(dev, smi, captured)
+
     # ---- phase 8: per-kernel numbers at the main paths' shapes ----
     with Phase("8 kernel timing"):
         rows = []
@@ -1514,7 +1573,7 @@ def main():
         for n, m in NN_MAPS.items():
             merger_row(f"merger_int_m{m}", m, b1, sw_mergers[m], "phase-6")
         rows += float_kernel_rows(captured, float_launches, q_inputs,
-                                  q_launches, dev)
+                                  q_launches, dev, host_launches)
         # The batched paths' shapes: the trial at b_eff = 4 x 31 slots
         # (phase 10), the merger at N = 124 (phase 11) and at N = 1 (the
         # decoder, phase 13).
@@ -1532,6 +1591,9 @@ def main():
             if ("merger", m, 1) in captured:
                 merger_row(f"merger_int_m{m}_n1_decoder", m, 1,
                            decode_mergers.get(m, 0), "phase-13")
+        # The host RDO encoder's w64 forwards (phase 18): M = 512, N = 1.
+        merger_row("merger_int_m512_n1_host", 512, 1,
+                   host_launches["merger_int_m512_n1_host"], "phase-18")
         with tempfile.TemporaryDirectory() as tmp:
             for case, (us, dev_us) in kernel_variants.empty_floor(
                     dev, tmp).items():
@@ -1610,9 +1672,407 @@ def main():
     say(json.dumps({"kernels": rows}))
     say(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def hm_decode_420(stream, h, w, tmp):
+    """Stock HM-16.15's decode of a 4:2:0 stream: (its stdout, (y, cb, cr)
+    8-bit planes)."""
+    out, raw = run_hm_decoder(stream, tmp)
+    c = (h // 2) * (w // 2)
+    if raw.size != h * w + 2 * c:
+        raise AssertionError(f"HM wrote {raw.size} samples, want "
+                             f"{h * w + 2 * c}")
+    return out, (raw[:h * w].reshape(h, w),
+                 raw[h * w:h * w + c].reshape(h // 2, w // 2),
+                 raw[h * w + c:].reshape(h // 2, w // 2))
+
+
+def host_codec_phase(dev, smi, captured):
+    """Phase 18, the host RDO codec on the card: `FrameEncoder` digests
+    against `tests/golden_torch/host_codec.json` (each stream decoded back
+    by the port's decoder), the Annex-B streams (stock HM on the regular
+    ones, the port's HM-syntax decoder on all), every stock-HM stream of
+    `tests/golden_hm/`, the RD sweep and BD-rates, and the float fallback.
+    Captures the N = 1 inputs of the integer merger (M = 512 included) and
+    of the float kernels into `captured` for phase 8.  Returns the
+    launches of the main path by row name."""
+    import torch
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import decoder, hm_decoder, hm_encoder, nn_intra
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .evaluation import host_cases as hc, performance
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import zoo
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import merger_int
+    from context_adaptive_neural_network_based_prediction_tpu_torch.utils \
+        import metrics
+
+    t_phase = time.perf_counter()
+    with open(hc.GOLDEN) as f:
+        golden = json.load(f)
+    arrays = np.load(hc.GOLDEN_NPZ)
+    mean = hc.mean_training()
+    zoo_b = zoo.load_quantized_bundle(hc.MANIFEST_QUANTIZED, mean)
+    launches = {}
+    orig_mkernel = merger_int._kernel
+    orig_forward = nn_intra.PnnPredictor._forward
+    fwd_s = [0.0]
+
+    def capture_merger(x, w, bb):        # one N = 1 input set per M
+        key = ("merger", x.shape[2], x.shape[0])
+        if key not in captured:
+            captured[key] = [a.clone() for a in (x, w, bb)]
+        return orig_mkernel(x, w, bb)
+
+    # Host time of each forward: context upload, forward and read-back
+    # (the read-back waits for the card); cache hits are not timed.
+    def timed_forward(self, above, left, n, mean, pos):
+        done = sum(self.forwards.values())
+        t0 = time.perf_counter()
+        out = orig_forward(self, above, left, n, mean, pos)
+        if sum(self.forwards.values()) != done:
+            fwd_s[0] += time.perf_counter() - t0
+        return out
+
+    def zoo_pred(policy):
+        return (nn_intra.PnnPredictor(zoo_b, device=dev)
+                if policy != "regular" else None)
+
+    # 18a: FrameEncoder (through `encode_frame_hm`, which also gives the
+    # Annex-B stream the RD sweep reads) against the JAX package's digests.
+    rd_frame = hc.load_frame(hc.RD_FRAME)
+    rd_streams = {}         # (policy, qp) -> (stream, result, seconds)
+    for frame_name, policy, qp in hc.ENCODES:
+        key = f"{frame_name}/{policy}/q{qp}"
+        want = golden["encodes"][key]
+        pred = zoo_pred(policy)
+        fwd_s[0] = 0.0
+        torch.cuda.synchronize()
+        reset_all_counts()
+        merger_int._kernel = capture_merger
+        nn_intra.PnnPredictor._forward = timed_forward
+        t0 = time.perf_counter()
+        try:
+            stream, res = hm_encoder.encode_frame_hm(
+                hc.load_frame(frame_name), qp, policy=policy, pnn=pred,
+                device=dev)
+            torch.cuda.synchronize()
+        finally:
+            merger_int._kernel = orig_mkernel
+            nn_intra.PnnPredictor._forward = orig_forward
+        sec = time.perf_counter() - t0
+        counts = read_all_counts()
+        per_m = dict(merger_int.launches)
+        for m, k in per_m.items():
+            name = f"merger_int_m{m}_n1_host"
+            launches[name] = launches.get(name, 0) + k
+        check_captured(sha(res.bitstream), want["stream"], f"{key} stream")
+        check_captured(sha(np.asarray(res.reconstruction, np.uint8)),
+                       want["recon"], f"{key} reconstruction")
+        check_captured(sha(np.asarray(res.mode_map, np.int32)),
+                       want["mode_map"], f"{key} mode map")
+        fwd = dict(pred.forwards) if pred is not None else {"fc": 0,
+                                                             "conv": 0}
+        if counts["merger_int"] != fwd["conv"] or counts["fc_forward"] \
+                or counts["merger"] or counts["unit_trial"]:
+            raise AssertionError(f"{key}: launches {counts} against "
+                                 f"forwards {fwd}")
+        if policy != "regular" and fwd["conv"] == 0:
+            raise AssertionError(f"{key}: no conv forward ran")
+        t0 = time.perf_counter()
+        dec = decoder.decode_frame(res.bitstream, pnn=zoo_b, device=dev)
+        t_dec = time.perf_counter() - t0
+        if not np.array_equal(dec.reconstruction, res.reconstruction):
+            raise AssertionError(f"{key}: the port's decoder differs")
+        n_fwd = fwd["fc"] + fwd["conv"]
+        ms_fwd = (f"{1e3 * fwd_s[0] / n_fwd:.3f} ms per forward (host: "
+                  f"upload, forward, read-back), {100 * fwd_s[0] / sec:.2f}% "
+                  f"of the wall inside forwards" if n_fwd else "no forward")
+        say(f"host {key}: encode_frame_hm {sec:.3f} s, {len(res.bitstream)} "
+            f"bytes == JAX digests (stream, recon, mode map); PNN forwards "
+            f"{fwd}, {ms_fwd}; merger launches {per_m} (== conv forwards), "
+            f"FC launches 0 (the quantized FC runs no kernel), PNN PUs "
+            f"{want['pnn_pus']}; decode {t_dec:.3f} s, reconstruction equal")
+        if frame_name == hc.RD_FRAME and policy in hc.RD_POLICIES:
+            rd_streams[policy, qp] = (stream, res, sec)
+
+    # 18b: Annex-B streams, the port's HM-syntax decoder and stock HM.
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, frame_name, policy, qp, chroma in hc.ANNEXB:
+            want = golden["annexb"][name]
+            y = hc.load_frame(frame_name)
+            t0 = time.perf_counter()
+            if chroma:
+                cb, cr = arrays[f"{name}/cb_src"], arrays[f"{name}/cr_src"]
+                stream, res, rec_cb, rec_cr = hm_encoder.encode_frame_hm_420(
+                    (y, cb, cr), qp, policy=policy, pnn=zoo_pred(policy),
+                    device=dev)
+                mine = (res.reconstruction, rec_cb, rec_cr)
+                check_captured(sha(rec_cb), want["recon_cb"], f"{name} cb")
+                check_captured(sha(rec_cr), want["recon_cr"], f"{name} cr")
+            else:
+                stream, res = hm_encoder.encode_frame_hm(
+                    y, qp, policy=policy, pnn=zoo_pred(policy), device=dev)
+                mine = (res.reconstruction, None, None)
+            t_enc = time.perf_counter() - t0
+            check_captured(sha(stream), want["stream"], f"{name} stream")
+            check_captured(sha(np.asarray(res.reconstruction, np.uint8)),
+                           want["recon"], f"{name} reconstruction")
+            dec = hm_decoder.decode_hm_stream(
+                stream, use_native="always", policy=policy,
+                pnn=zoo_b if policy != "regular" else None, device=dev)
+            got = (dec.reconstruction, dec.reconstruction_cb,
+                   dec.reconstruction_cr)
+            if not dec.hash_ok or not all(
+                    (g is None and m is None) or np.array_equal(g, m)
+                    for g, m in zip(got, mine)):
+                raise AssertionError(f"{name}: the port's HM decoder differs")
+            hm_note = ""
+            if policy == "regular":
+                h, w = y.shape
+                if chroma:
+                    out, planes = hm_decode_420(stream, h, w, tmp)
+                else:
+                    out, luma = hm_decode(stream, h, w, tmp)
+                    planes = (luma, None, None)
+                if "(OK)" not in out or not all(
+                        m is None or np.array_equal(p, m)
+                        for p, m in zip(planes, mine)):
+                    raise AssertionError(f"{name}: stock HM differs: "
+                                         f"{out[-300:]}")
+                hm_note = "; stock HM (OK), planes equal"
+            say(f"host {name}: {len(stream)} bytes in {t_enc:.3f} s == JAX "
+                f"digests; the port's decode_hm_stream (native parser) "
+                f"gives it back, hash OK{hm_note}")
+            if frame_name == hc.RD_FRAME and not chroma \
+                    and policy in hc.RD_POLICIES:
+                rd_streams[policy, qp] = (stream, res, t_enc)
+
+    # 18c: every stock-HM stream of tests/golden_hm.
+    n_streams = 0
+    for path in sorted(glob.glob(os.path.join(REPO, "tests", "golden_hm",
+                                              "*.bin"))):
+        with open(path, "rb") as f:
+            dec = hm_decoder.decode_hm_stream(f.read(), use_native="always")
+        base = path[:-4]
+        if os.path.basename(path).startswith("420"):
+            with np.load(base + "_rec.npz") as z:
+                want = (z["y"], z["cb"], z["cr"])
+            got = (dec.reconstruction, dec.reconstruction_cb,
+                   dec.reconstruction_cr)
+        else:
+            want, got = (np.load(base + "_rec.npy"),), (dec.reconstruction,)
+        if not dec.hash_ok or not all(np.array_equal(g, w)
+                                      for g, w in zip(got, want)):
+            raise AssertionError(f"{path}: the port's HM decoder differs")
+        n_streams += 1
+    say(f"host: the port's decode_hm_stream on {n_streams} stock-HM streams "
+        f"(luma and 4:2:0): every plane equal to its stored reconstruction")
+
+    # 18d: the RD sweep.  `compute_rate_psnr` encodes the QPs that 18a and
+    # 18b did not; the other points come from their Annex-B streams,
+    # decoded as `compute_rate_psnr` decodes them.
+    h, w = rd_frame.shape
+    curves, run_qps = {}, set()
+    t0 = time.perf_counter()
+    for policy in hc.RD_POLICIES:
+        pnn_b = zoo_b if policy != "regular" else None
+        curves[policy] = []
+        for qp in hc.RD_QPS:
+            if (policy, qp) not in rd_streams:
+                run_qps.add(qp)
+                curves[policy].append(performance.compute_rate_psnr(
+                    rd_frame, qp, policy=policy, pnn=pnn_b,
+                    use_hm_container=True, device=dev))
+                continue
+            stream, res, sec = rd_streams[policy, qp]
+            t1 = time.perf_counter()
+            hd = hm_decoder.decode_hm_stream(stream, policy=policy,
+                                             pnn=pnn_b, device=dev)
+            if not hd.hash_ok or not np.array_equal(hd.reconstruction,
+                                                    res.reconstruction):
+                raise AssertionError(f"RD {policy} QP {qp}: the decode "
+                                     f"differs")
+            curves[policy].append(performance.RdPoint(
+                qp=qp, rate_bpp=len(stream) * 8 / (h * w),
+                psnr_db=float(metrics.compute_psnr(rd_frame,
+                                                   hd.reconstruction)),
+                encode_time_s=sec, decode_time_s=time.perf_counter() - t1))
+        check_captured([[p.qp, p.rate_bpp, p.psnr_db]
+                        for p in curves[policy]], golden["rd"][policy],
+                       f"RD {policy}")
+    bd = performance.bd_rate_low_high_full(curves["regular"],
+                                           curves["switch"])
+    want = golden["rd"]["bd_switch_vs_regular"]
+    if any(abs(bd[k] - want[k]) > 1e-9 for k in want):
+        raise AssertionError(f"BD-rates {bd} != captured {want}")
+    say(f"host RD sweep ({hc.RD_FRAME}, QP {hc.RD_QPS}, Annex-B rate, "
+        f"checked through the HM-syntax decoder): rates and PSNRs == JAX in "
+        f"{time.perf_counter() - t0:.3f} s (compute_rate_psnr at QP "
+        f"{sorted(run_qps)}, the other points from the streams of 18a / "
+        f"18b); BD-rate switch vs regular: low {bd['low']:.6f} %, high "
+        f"{bd['high']:.6f} %, full {bd['full']:.6f} % (== JAX within 1e-9; "
+        f"the port's faithfulness, not the paper's result)")
+
+    float_fallback_checks(dev, captured, golden, mean, launches)
+    say(f"host codec phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
+def float_fallback_checks(dev, captured, golden, mean, launches):
+    """Phase 18e: one switch encode with a bundle of float models only, so
+    that the PNN forwards run the FC and float merger kernels at N = 1.
+    Every forward (through the kernels, counted) is held against its plain
+    version on the same inputs (not counted); pixels within the float
+    tolerance of a .5 tie are counted, by unit.  The stream must equal the
+    JAX package's where no coded PNN unit had such a pixel."""
+    import torch
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import decoder, encoder, nn_intra
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .evaluation import host_cases as hc
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import pnn, zoo
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import fc_forward, merger
+
+    fbundle = zoo.load_codec_bundle(hc.MANIFEST_TRAINED, mean,
+                                    widths=hc.FLOAT_WIDTHS)
+    frame_name, qp = hc.FLOAT_ENCODE
+    orig_fc, orig_fm = fc_forward.fc_forward, merger.merger_forward
+    orig_pixels, orig_net = pnn.predict_uint8, pnn.forward
+    orig_unit = nn_intra.PnnPredictor._forward
+    stats = {"forwards": 0, "near_ties": 0, "flips": 0, "worst": 0.0}
+    held, tied = {}, set()
+
+    def capture_fc(x, weights, biases, impl="kernel"):
+        key = ("fc1", x.shape[1])
+        if impl == "kernel" and key not in captured:
+            captured[key] = (x.clone(), weights, biases)
+        return orig_fc(x, weights, biases, impl=impl)
+
+    def capture_fm(x, w, b, act=False, impl="kernel"):
+        key = ("fmerger1", x.shape[2])
+        if impl == "kernel" and key not in captured:
+            captured[key] = (x.clone(), w, b, act)
+        return orig_fm(x, w, b, act=act, impl=impl)
+
+    def plain_forward(params, inputs, n, is_fc):
+        saved = fc_forward.fc_forward, merger.merger_forward
+        fc_forward.fc_forward = lambda x, ws, bs, impl="kernel": orig_fc(
+            x, ws, bs, impl="plain")
+        merger.merger_forward = lambda x, w, b, act=False, impl="kernel": \
+            orig_fm(x, w, b, act=act, impl="plain")
+        try:
+            return orig_net(params, inputs, n, is_fc)
+        finally:
+            fc_forward.fc_forward, merger.merger_forward = saved
+
+    def unit_forward(self, above, left, n, mean, pos):
+        held["unit"] = tuple(pos) + (n,)
+        return orig_unit(self, above, left, n, mean, pos)
+
+    def checked_forward(params, inputs, n, is_fc):
+        raw = orig_net(params, inputs, n, is_fc)
+        want = plain_forward(params, inputs, n, is_fc)
+        scale = want.abs().max().item()
+        err = (raw - want).abs().max().item()
+        stats["worst"] = max(stats["worst"], err / max(scale, 1e-30))
+        if err > 1e-4 * scale:
+            raise AssertionError(f"float w{n}: kernels differ from plain by "
+                                 f"{err} (max |plain| {scale})")
+        held["want"], held["scale"] = want[0, :, :, 0], scale
+        return raw
+
+    # `predict_uint8` rounds the kernels' output as it always does; the
+    # plain output rounded the same way must agree off the ties.
+    def checked_pixels(params, inputs, n, is_fc, mean_training):
+        got = orig_pixels(params, inputs, n, is_fc, mean_training)
+        want, scale = held.pop("want"), held.pop("scale")
+        px = torch.clamp(want + float(np.float32(mean_training)), 0, 255)
+        tie = ((px - px.floor() - 0.5).abs() <= 1e-4 * scale)
+        differ = got[0].to(torch.int32) != torch.round(px).to(torch.int32)
+        if (differ & ~tie).any():
+            raise AssertionError(f"float w{n}: a pixel off a tie differs")
+        if tie.any():
+            tied.add(held["unit"])
+        stats["near_ties"] += int(tie.sum())
+        stats["flips"] += int(differ.sum())
+        stats["forwards"] += 1
+        return got
+
+    pred = nn_intra.PnnPredictor(fbundle, device=dev)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    fc_forward.fc_forward, merger.merger_forward = capture_fc, capture_fm
+    pnn.forward, pnn.predict_uint8 = checked_forward, checked_pixels
+    nn_intra.PnnPredictor._forward = unit_forward
+    t0 = time.perf_counter()
+    try:
+        res = encoder.encode_frame(hc.load_frame(frame_name), qp,
+                                   policy="switch", pnn=pred, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        fc_forward.fc_forward, merger.merger_forward = orig_fc, orig_fm
+        pnn.forward, pnn.predict_uint8 = orig_net, orig_pixels
+        nn_intra.PnnPredictor._forward = orig_unit
+    t_run = time.perf_counter() - t0
+    counts = read_all_counts()
+    ff = dict(pred.float_forwards)
+    fc_counts, fm_counts = dict(fc_forward.launches), dict(merger.launches)
+    if counts["fc_forward"] != 4 * ff["fc"] or counts["merger"] != ff[
+            "conv"] or counts["merger_int"] != 0 or not ff["fc"] \
+            or not ff["conv"] or stats["forwards"] != ff["fc"] + ff["conv"]:
+        raise AssertionError(f"float fallback: launches {counts} against "
+                             f"float forwards {ff}")
+    for k, w in ((80, 4), (320, 8)):     # a forward's first layer
+        launches[f"fc_forward_w{w}_n1_host"] = 4 * fc_counts.get(
+            (k, 1200), 0)
+    for m, c in fm_counts.items():
+        launches[f"merger_m{m}_n1_host"] = c
+    dec = decoder.decode_frame(res.bitstream, pnn=fbundle, device=dev)
+    if not np.array_equal(dec.reconstruction, res.reconstruction):
+        raise AssertionError("float fallback: the port's decoder differs")
+    # The units whose PNN prediction the stream codes: the TUs of the PUs
+    # coded with the PNN mode.
+    coded, stack = set(), list(res.ctu_trees)
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children)
+        coded.update((tu.x, tu.y, tu.n) for pu in node.pus
+                     if pu.mode == encoder.PNNS_MODE for tu in pu.tus)
+    key = f"{frame_name}/switch/q{qp}"
+    fwant = golden["float"][key]
+    same = {"stream": sha(res.bitstream) == fwant["stream"],
+            "recon": sha(np.asarray(res.reconstruction, np.uint8))
+            == fwant["recon"],
+            "mode map": sha(np.asarray(res.mode_map, np.int32))
+            == fwant["mode_map"]}
+    hit = coded & tied
+    if not hit:
+        for what, ok in same.items():
+            if not ok:
+                raise AssertionError(f"float fallback {key}: the {what} "
+                                     f"differs from the JAX package's")
+    verdict = ("required, as no coded PNN unit hit a tie" if not hit else
+               f"not required, as {len(hit)} of the {len(coded)} coded PNN "
+               f"units hit one")
+    say(f"host float fallback ({frame_name} switch QP {qp}, float models "
+        f"only): encode {t_run:.3f} s with every forward also run "
+        f"plain, float forwards {ff}, FC launches {fc_counts} (4 layers a "
+        f"forward), float merger launches {fm_counts}; kernels vs plain "
+        f"within {stats['worst']:.2e} of max |plain| over "
+        f"{stats['forwards']} forwards, {stats['near_ties']} pixels within "
+        f"that tolerance of a tie in {len(tied)} units, {stats['flips']} "
+        f"rounded the other way; round trip exact; stream, reconstruction "
+        f"and mode map {'==' if all(same.values()) else '!='} the JAX "
+        f"package's float encode ({verdict})")
 
 
 def kernel_row(name, source, replaces, launches, err, fn, plain_fn,
@@ -1638,7 +2098,8 @@ def kernel_row(name, source, replaces, launches, err, fn, plain_fn,
         library_queued_ms=library_queued_ms)
 
 
-def float_kernel_rows(captured, float_launches, q_inputs, q_launches, dev):
+def float_kernel_rows(captured, float_launches, q_inputs, q_launches, dev,
+                      host_launches):
     """Rows of the float PNN's kernels: the FC chain (w4, w8) and the float
     merger (M = 32, 64, 128, 256) on the inputs of the 1080p comparison's
     first chunk (float32 weights, N = 1024), and the serving shapes of
@@ -1648,7 +2109,10 @@ def float_kernel_rows(captured, float_launches, q_inputs, q_launches, dev):
     that width.  Then the quantize path's (phase 17: `q_inputs`, the first
     call of each shape, and `q_launches`, the launches of that shape over
     the six models): one FC layer at N = 256 per input width K (80, 320,
-    1200; float32 weights) and the float merger at N = 256 per M."""
+    1200; float32 weights) and the float merger at N = 256 per M.  Last
+    the host encoder's float fallback (phase 18): the FC chain (w4, w8)
+    and the float merger per M at N = 1, float32 weights, with that
+    encode's launches (`host_launches`)."""
     import torch
 
     from context_adaptive_neural_network_based_prediction_tpu_torch.models \
@@ -1744,6 +2208,14 @@ def float_kernel_rows(captured, float_launches, q_inputs, q_launches, dev):
         else:
             merger_row(f"merger_m{size}_n{x.shape[0]}_quantize", x, ws, bs,
                        act, q_launches[(kind, size)])
+    for k_in, w in ((80, 4), (320, 8)):
+        x, ws, bs = captured[("fc1", k_in)]
+        fc_row(f"fc_forward_w{w}_n1_host", x, ws, bs,
+               host_launches[f"fc_forward_w{w}_n1_host"])
+    for key in sorted(k for k in captured if k[0] == "fmerger1"):
+        x, w, b, act = captured[key]
+        merger_row(f"merger_m{key[1]}_n1_host", x, w, b, act,
+                   host_launches[f"merger_m{key[1]}_n1_host"])
     return rows
 
 

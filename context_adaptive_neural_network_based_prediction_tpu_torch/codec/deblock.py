@@ -1,6 +1,6 @@
-"""HEVC in-loop deblocking filter (luma, All-Intra).
+"""HEVC in-loop deblocking filter (luma and 4:2:0 chroma, All-Intra).
 
-The port's copy of the JAX package's `codec/deblock.py` (:103-156), HM-16.15
+The port's copy of the JAX package's `codec/deblock.py` (:103-212), HM-16.15
 `TComLoopFilter.cpp` (sm_betaTable/sm_tcTable:59-67,
 xEdgeFilterLuma:600-700, xPelFilterLuma:830-892, xUseStrongFiltering:
 933-944) for the intra-only case: every 8x8-grid edge that coincides with
@@ -11,10 +11,10 @@ filtered samples), as in HM.  Intra prediction uses the unfiltered
 reconstruction, so the filter is a normative post-pass shared by the
 encoder and the decoder.
 
-`deblock_luma` runs the native filter (`native/hm_parse.cpp:1554`, bound
-in `native.py`) on the host, where the JAX package runs it; a build or
-call failure raises.  `deblock_luma_plain` is its numpy twin, for the
-tests.
+`deblock_luma` and `deblock_chroma` run the native filters
+(`native/hm_parse.cpp`, bound in `native.py`) on the host, where the JAX
+package runs them; a build or call failure raises.  `deblock_luma_plain`
+and `deblock_chroma_plain` are their numpy twins, for the tests.
 """
 
 from __future__ import annotations
@@ -149,3 +149,52 @@ def deblock_luma_plain(recon: np.ndarray, tu_map: np.ndarray, qp: int,
             _filter_segment(get, put, tc, beta, bit_depth)
 
     return np.clip(out, 0, (1 << bit_depth) - 1).astype(recon.dtype)
+
+
+def deblock_chroma(plane: np.ndarray, tu_map_luma: np.ndarray,
+                   qp_c: int) -> np.ndarray:
+    """Deblocks one 8-bit 4:2:0 chroma plane (HM `xEdgeFilterChroma` +
+    `xPelFilterChroma`, All-Intra): a new array.  `tu_map_luma` is the
+    luma-resolution 4x4-unit TU id map."""
+    return native.deblock_chroma(plane, tu_map_luma, qp_c)
+
+
+def deblock_chroma_plain(plane: np.ndarray, tu_map_luma: np.ndarray,
+                         qp_c: int, bit_depth: int = 8) -> np.ndarray:
+    """`deblock_chroma` in numpy (JAX package :159-212).  Chroma edges lie
+    on the 8-chroma-sample grid; every intra TU/PU boundary has BS 2 and
+    filters in 2-sample segments, adjusting p0 / q0 only, with tc from the
+    chroma QP plus the intra offset."""
+    hc, wc = plane.shape
+    out = plane.astype(np.int32).copy()
+    tc = int(TC_TABLE[int(np.clip(qp_c + DEFAULT_INTRA_TC_OFFSET, 0, 53))])
+    if tc == 0:
+        return plane.copy()
+    max_val = (1 << bit_depth) - 1
+
+    def filter_pair(p1, p0, q0, q1):
+        delta = max(-tc, min(tc, (((q0 - p0) << 2) + p1 - q1 + 4) >> 3))
+        return (max(0, min(max_val, p0 + delta)),
+                max(0, min(max_val, q0 - delta)))
+
+    for xc in range(8, wc, 8):
+        ux = (2 * xc) // 4
+        for y0 in range(0, hc, 2):
+            uy = (2 * y0) // 4
+            if tu_map_luma[uy, ux - 1] == tu_map_luma[uy, ux]:
+                continue
+            for i in range(2):
+                r = out[y0 + i]
+                r[xc - 1], r[xc] = filter_pair(int(r[xc - 2]), int(r[xc - 1]),
+                                               int(r[xc]), int(r[xc + 1]))
+    for yc in range(8, hc, 8):
+        uy = (2 * yc) // 4
+        for x0 in range(0, wc, 2):
+            ux = (2 * x0) // 4
+            if tu_map_luma[uy - 1, ux] == tu_map_luma[uy, ux]:
+                continue
+            for i in range(2):
+                c = out[:, x0 + i]
+                c[yc - 1], c[yc] = filter_pair(int(c[yc - 2]), int(c[yc - 1]),
+                                               int(c[yc]), int(c[yc + 1]))
+    return np.clip(out, 0, max_val).astype(plane.dtype)

@@ -30,7 +30,7 @@ from ..ops import intra, reference_samples as rs, transform
 from . import cabac, deblock, sao as sao_mod, syntax
 from .contexts import OFFSETS, make_context_states
 from .encoder import MAGIC, MAX_TU, MIN_CU, PNNS_MODE, POLICIES, mpms_switch
-from .nn_intra import PnnPredictor
+from .nn_intra import as_predictor
 
 HEADER = "<4sBBBBBBBBBII"
 
@@ -69,11 +69,7 @@ class FrameDecoder:
         self.w, self.h = w, h
         self.strong_smoothing = strong_intra_smoothing
         if pnn is not None:
-            if not isinstance(pnn, PnnPredictor):
-                pnn = PnnPredictor(pnn, device=device)
-            elif str(pnn.device) != str(device):
-                pnn = PnnPredictor(pnn.bundle, pnn.qp, device)
-            pnn = pnn.bind_qp(qp)
+            pnn = as_predictor(pnn, device).bind_qp(qp)
         self.pnn = pnn
         self.dec = cabac.CabacDecoder(bitstream[header_size:])
         # A list: faster per bin than a numpy array, the same states.

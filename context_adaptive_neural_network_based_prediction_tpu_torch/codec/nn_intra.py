@@ -13,11 +13,16 @@ NN policies run.  A quantized model's architecture is its dict's `kind`
 ("fc" or "conv"), a float model's its top-level scope.
 
 `context_available`, `extract_context` and `PnnPredictor` (JAX package
-:119-234) are the decoder's side: one TU's masked context from the
-reconstruction so far, and the quantized forward of one context
-(`models/pnn_q.predict_pixels_q`, op by op, on the predictor's device; on
-the card its merger is the integer merger kernel at N = 1).  Integer sums
-make that forward equal to the encoder's batched one.
+:119-264) are the codec's side: one TU's masked context from the
+reconstruction so far, and the forward of one context on the predictor's
+device.  A width with a quantized model runs the quantized forward
+(`models/pnn_q.predict_pixels_q`, op by op; on the card its merger is the
+integer merger kernel at N = 1), whose integer sums make it equal to the
+wavefront encoder's batched one.  A width with only a float model runs the
+float forward (`models/pnn.forward`; on the card the FC kernel or the
+float merger kernel at N = 1), then round(clip(pred + mean)), as the JAX
+package does (:225-232).  `predict_chroma` runs the luma-trained models on
+a 4:2:0 chroma plane (the switch policy's chroma PNNS mode).
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models import pnn_q
+from ..models import pnn, pnn_q, zoo
+from ..ops import reference_samples as rs
 
 QP_PAIR_THRESHOLD = 32  # QP >= 32 selects artifact-trained ("pair") models
 
@@ -160,39 +166,66 @@ def extract_context(recon: np.ndarray, x: int, y: int, n: int,
     return above, left
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises, so
+    an entry point never runs on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           f"is available; pass device='cpu' to run on the "
+                           f"CPU")
+    return dev
+
+
+def as_predictor(pnn, device) -> "PnnPredictor":
+    """A `PnnPredictor` on `device` from a predictor (its QP and forward
+    counts kept) or a `PnnBundle`."""
+    if not isinstance(pnn, PnnPredictor):
+        return PnnPredictor(pnn, device=device)
+    if torch.device(pnn.device) != torch.device(device):
+        return PnnPredictor(pnn.bundle, pnn.qp, device,
+                            forwards=pnn.forwards,
+                            float_forwards=pnn.float_forwards)
+    return pnn
+
+
 @dataclass
 class PnnPredictor:
-    """Normative PNN prediction of one frame's decode, quantized models on
-    `device` ("cuda" by default).  `forwards` counts the forwards run by
-    architecture (cache hits are not forwards)."""
+    """Normative PNN prediction of one frame's encode or decode, the
+    models on `device` ("cuda" by default).  `forwards` counts the
+    quantized forwards run and `float_forwards` the float ones, by
+    architecture; cache hits are not forwards."""
     bundle: PnnBundle
     qp: Optional[int] = None   # set by the codec; selects single vs pair models
     device: object = "cuda"
-    _models: dict = field(default_factory=dict)  # (width, pair) -> tensors
+    _models: dict = field(default_factory=dict)  # (width, id) -> tensors
     _cache: dict = field(default_factory=dict)
     forwards: dict = field(default_factory=lambda: {"fc": 0, "conv": 0})
+    float_forwards: dict = field(
+        default_factory=lambda: {"fc": 0, "conv": 0})
 
     def bind_qp(self, qp: int) -> "PnnPredictor":
         """Codec-side model selection (QP >= 32 -> pair models when present);
-        the models already on the device are shared."""
+        the models already on the device and the forward counts are
+        shared."""
         if self.qp == qp:
             return self
-        return PnnPredictor(self.bundle, qp, self.device, self._models)
+        return PnnPredictor(self.bundle, qp, self.device, self._models,
+                            forwards=self.forwards,
+                            float_forwards=self.float_forwards)
 
     @property
     def _quantized(self):
         return self.bundle.quantized_for_qp(self.qp if self.qp is not None
                                             else 0)
 
+    @property
+    def _params(self):
+        return self.bundle.params_for_qp(self.qp if self.qp is not None
+                                         else 0)
+
     def supports(self, n: int) -> bool:
-        if n in self._quantized:
-            return True
-        float_models = getattr(self.bundle, "params", None) or {}
-        if n in float_models:
-            raise NotImplementedError(
-                f"width {n} has only a float PNN; the port's decoder runs the"
-                f" quantized models (the float fallback is ROADMAP A9)")
-        return False
+        return n in self._quantized or n in self._params
 
     def predict(self, recon: np.ndarray, x: int, y: int, n: int,
                 flags: np.ndarray) -> np.ndarray:
@@ -203,20 +236,29 @@ class PnnPredictor:
         above, left = extract_context(recon, x, y, n, flags, mean)
         return self._forward(above, left, n, mean, (x, y))
 
+    def _on_device(self, n, model, convert):
+        key = (n, id(model))
+        if key not in self._models:
+            self._models[key] = (convert(model, self.device), model)
+        return self._models[key][0]
+
     def _forward(self, above, left, n, mean, pos) -> np.ndarray:
         # The cache key fingerprints the context pixels, not just the
-        # position (JAX package :196-201).
+        # position (JAX package :196-201): during RDO the same TU position
+        # is predicted under different neighbouring reconstructions.
         key = pos + (n, hash(above.tobytes()) ^ hash(left.tobytes()))
         if key in self._cache:
             return self._cache[key]
         if len(self._cache) > 4096:
             self._cache.clear()
-        q = self._quantized[n]
-        is_fc = str(np.asarray(q["kind"])) == "fc"
-        mkey = (n, id(q))
-        if mkey not in self._models:
-            self._models[mkey] = (pnn_q.params_from_numpy(q, self.device), q)
-        params = self._models[mkey][0]
+        quant = self._quantized
+        if n in quant:
+            is_fc = _quantized_is_fc(quant[n])
+            params = self._on_device(n, quant[n], pnn_q.params_from_numpy)
+        else:
+            is_fc = _float_is_fc(self._params[n])
+            params = self._on_device(n, self._params[n],
+                                     zoo.params_from_numpy)
         if is_fc:
             inputs = torch.from_numpy(np.concatenate(
                 [above.reshape(1, -1), left.reshape(1, -1)],
@@ -224,11 +266,36 @@ class PnnPredictor:
         else:
             inputs = (torch.from_numpy(above[None, :, :, None]).to(self.device),
                       torch.from_numpy(left[None, :, :, None]).to(self.device))
-        out = pnn_q.predict_pixels_q(params, inputs, n, is_fc,
-                                     mean)[0].cpu().numpy()
-        self.forwards["fc" if is_fc else "conv"] += 1
+        if n in quant:
+            out = pnn_q.predict_pixels_q(params, inputs, n, is_fc, mean)
+            counts = self.forwards
+        else:
+            out = pnn.predict_uint8(params, inputs, n, is_fc,
+                                    mean).to(torch.int32)
+            counts = self.float_forwards
+        out = out[0].cpu().numpy()
+        counts["fc" if is_fc else "conv"] += 1
         self._cache[key] = out
         return out
+
+    def predict_chroma(self, plane: np.ndarray, unit_coded2: np.ndarray,
+                       xc: int, yc: int, nc: int, hc: int,
+                       wc: int) -> np.ndarray:
+        """Switch chroma PNNS prediction (chroma candidate slot 35, or DM of
+        a PNNS luma PU; hm_16_15_switch `TComDataCU.cpp:1364-1400`; JAX
+        package :236): the luma-trained models on the chroma plane, as the
+        reference's switch codec runs them.  Availability at chroma-unit
+        (2-sample) granularity is pooled to the 4-sample units
+        `extract_context` expects."""
+        if not context_available(xc, yc, nc) or not self.supports(nc):
+            return np.zeros((nc, nc), dtype=np.int32)
+        c2 = unit_coded2
+        pooled = (c2[0::2, 0::2] & c2[0::2, 1::2]
+                  & c2[1::2, 0::2] & c2[1::2, 1::2])
+        flags = rs.coded_unit_flags(pooled.astype(bool), xc, yc, nc, hc, wc)
+        mean = self.bundle.mean_for(nc)
+        above, left = extract_context(plane, xc, yc, nc, flags, mean)
+        return self._forward(above, left, nc, mean, ("c", xc, yc))
 
     def invalidate(self):
         self._cache.clear()

@@ -1,7 +1,7 @@
 """Sample Adaptive Offset (SAO), luma, per CTU.
 
-The port's copy of the JAX package's `codec/sao.py` (:41-327; the chroma
-estimate is not ported), HM-16.15 `TComSampleAdaptiveOffset` /
+The port's copy of the JAX package's `codec/sao.py` (:41-406, the chroma
+estimate `estimate_frame_chroma` included), HM-16.15 `TComSampleAdaptiveOffset` /
 `TEncSampleAdaptiveOffset` semantics for 8-bit luma:
 
 * per-CTU choice of OFF / band offset (BO) / edge offset (EO classes 0/90/135/
@@ -327,3 +327,83 @@ def decode_params(dec, ctx, n_ctu_y: int, n_ctu_x: int):
                 offsets = (mags[0], mags[1], -mags[2], -mags[3])
                 grid[cy][cx] = SaoParams(MODE_EO, eo_class, offsets)
     return grid
+
+
+def estimate_frame_chroma(orig_cb, deblocked_cb, orig_cr, deblocked_cr,
+                          ctu_size_chroma: int, lam: float):
+    """Joint per-CTU SAO params for Cb+Cr (shared mode and EO class,
+    per-component offsets/band - HEVC chroma SAO signalling).
+
+    Returns (grid_cb, grid_cr).
+    """
+    h, w = orig_cb.shape
+    cats = {"cb": {c: _eo_categories(deblocked_cb, c) for c in range(4)},
+            "cr": {c: _eo_categories(deblocked_cr, c) for c in range(4)}}
+    grid_cb, grid_cr = [], []
+    n_y = (h + ctu_size_chroma - 1) // ctu_size_chroma
+    n_x = (w + ctu_size_chroma - 1) // ctu_size_chroma
+    for cy in range(n_y):
+        row_cb, row_cr = [], []
+        for cx in range(n_x):
+            y0, y1 = cy * ctu_size_chroma, min((cy + 1) * ctu_size_chroma, h)
+            x0, x1 = cx * ctu_size_chroma, min((cx + 1) * ctu_size_chroma, w)
+
+            def comp_cost(orig, deb, plane_cats, mode, aux):
+                o = orig[y0:y1, x0:x1].astype(np.int64)
+                r = deb[y0:y1, x0:x1].astype(np.int64)
+                diff = o - r
+                offsets, cost = [], 0.0
+                if mode == MODE_EO:
+                    cat = plane_cats[aux][y0:y1, x0:x1]
+                    for c in range(1, 5):
+                        mask = cat == c
+                        count = int(mask.sum())
+                        total = int(diff[mask].sum()) if count else 0
+                        off, dcost = _best_offset(count, total, lam,
+                                                  positive=(c <= 2))
+                        offsets.append(off)
+                        cost += dcost + lam * _tr_bits(abs(off))
+                    return tuple(offsets), cost
+                band = (r >> 3).astype(np.int32)
+                counts = np.bincount(band.reshape(-1), minlength=32)
+                sums = np.bincount(band.reshape(-1), weights=diff.reshape(-1),
+                                   minlength=32)
+                best = None
+                for pos in range(29):
+                    offs, c_total = [], 0.0
+                    for i in range(4):
+                        b = pos + i
+                        off, dcost = _best_offset(
+                            int(counts[b]), int(sums[b]), lam,
+                            positive=(sums[b] >= 0), extra_sign_bit=True)
+                        offs.append(off)
+                        c_total += dcost + lam * (_tr_bits(abs(off))
+                                                  + (1 if off else 0))
+                    c_total += lam * 5
+                    if best is None or c_total < best[1]:
+                        best = ((tuple(offs), pos), c_total)
+                return best[0], best[1]
+
+            best = (SaoParams(), SaoParams(), lam * 1.0)  # OFF
+            for eo_class in range(4):
+                ob, cb_cost = comp_cost(orig_cb, deblocked_cb, cats["cb"],
+                                        MODE_EO, eo_class)
+                orr, cr_cost = comp_cost(orig_cr, deblocked_cr, cats["cr"],
+                                         MODE_EO, eo_class)
+                cost = cb_cost + cr_cost + lam * (2 + 2)
+                if cost < best[2] and (any(ob) or any(orr)):
+                    best = (SaoParams(MODE_EO, eo_class, ob),
+                            SaoParams(MODE_EO, eo_class, orr), cost)
+            (ob, pb), cb_cost = comp_cost(orig_cb, deblocked_cb, cats["cb"],
+                                          MODE_BO, None)
+            (orr, pr), cr_cost = comp_cost(orig_cr, deblocked_cr, cats["cr"],
+                                           MODE_BO, None)
+            cost = cb_cost + cr_cost + lam * 2
+            if cost < best[2] and (any(ob) or any(orr)):
+                best = (SaoParams(MODE_BO, pb, ob),
+                        SaoParams(MODE_BO, pr, orr), cost)
+            row_cb.append(best[0])
+            row_cr.append(best[1])
+        grid_cb.append(row_cb)
+        grid_cr.append(row_cr)
+    return grid_cb, grid_cr

@@ -14,6 +14,8 @@ The framework container's payload is coded by the native packer.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from . import cabac, scans
@@ -56,6 +58,7 @@ class _ChannelParams:
 
 
 LUMA = _ChannelParams(False)
+CHROMA = _ChannelParams(True)
 
 
 def _last_ctx_params(log2n: int, ch: _ChannelParams):
@@ -164,6 +167,20 @@ def decode_intra_mode(dec: cabac.CabacDecoder, ctx: np.ndarray, mpms) -> int:
 
 # -------------------------------------------------------------- residual ----
 
+@functools.lru_cache(maxsize=None)
+def _coef_tables(n: int, scan_type: int, is_chroma: bool):
+    """Python-list tables of one (size, scan, channel) for the coefficient
+    coder's per-bin loop: the scan, the CG scan, and the sig_coeff_flag
+    context of every raster position under each CG pattern 0-3."""
+    ch = CHROMA if is_chroma else LUMA
+    log2n = n.bit_length() - 1
+    first_ctx = _first_sig_ctx(n, scan_type, ch)
+    sig = [[_sig_ctx(p, rp % n, rp // n, log2n, scan_type, first_ctx, ch)
+            for rp in range(n * n)] for p in range(4)]
+    return (scans.scan_order(n, n, scan_type).tolist(),
+            scans.cg_scan_order(n, n, scan_type).tolist(), sig)
+
+
 def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
                         coeffs: np.ndarray, mode: int,
                         sign_hiding: bool = False,
@@ -173,22 +190,20 @@ def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
     n = coeffs.shape[0]
     log2n = n.bit_length() - 1
     scan_type = _scan_for(mode, n, ch)
-    scan = scans.scan_order(n, n, scan_type)
-    scan_cg = scans.cg_scan_order(n, n, scan_type)
-    flat = coeffs.reshape(-1)
-    first_ctx = _first_sig_ctx(n, scan_type, ch)
+    scan, scan_cg, sig_ctx = _coef_tables(n, scan_type, ch.is_chroma)
+    flat = coeffs.reshape(-1).tolist()
     width_in_groups = max(n // 4, 1)
+    encode_bin = enc.encode_bin
 
-    nz_scan_positions = np.nonzero(flat[scan] != 0)[0]
-    assert nz_scan_positions.size > 0, "empty TU passed to encode_coefficients"
-    scan_pos_last = int(nz_scan_positions[-1])
-    pos_last = int(scan[scan_pos_last])
+    nz_scan_positions = [sp for sp, rp in enumerate(scan) if flat[rp]]
+    assert nz_scan_positions, "empty TU passed to encode_coefficients"
+    scan_pos_last = nz_scan_positions[-1]
+    pos_last = scan[scan_pos_last]
     pos_last_y, pos_last_x = divmod(pos_last, n)
 
-    sig_cg = np.zeros(max(width_in_groups * width_in_groups, 1), dtype=np.int32)
+    sig_cg = [0] * max(width_in_groups * width_in_groups, 1)
     for sp in nz_scan_positions:
-        rp = int(scan[sp])
-        py, px = divmod(rp, n)
+        py, px = divmod(scan[sp], n)
         sig_cg[(py >> 2) * width_in_groups + (px >> 2)] = 1
 
     # ---- last significant position ----
@@ -199,13 +214,13 @@ def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
     group_y = int(scans.GROUP_IDX[ly])
     blk_offset, shift = _last_ctx_params(log2n, ch)
     for c in range(group_x):
-        enc.encode_bin(1, ctx, ch.last_x + blk_offset + (c >> shift))
+        encode_bin(1, ctx, ch.last_x + blk_offset + (c >> shift))
     if group_x < int(scans.GROUP_IDX[n - 1]):
-        enc.encode_bin(0, ctx, ch.last_x + blk_offset + (group_x >> shift))
+        encode_bin(0, ctx, ch.last_x + blk_offset + (group_x >> shift))
     for c in range(group_y):
-        enc.encode_bin(1, ctx, ch.last_y + blk_offset + (c >> shift))
+        encode_bin(1, ctx, ch.last_y + blk_offset + (c >> shift))
     if group_y < int(scans.GROUP_IDX[n - 1]):
-        enc.encode_bin(0, ctx, ch.last_y + blk_offset + (group_y >> shift))
+        encode_bin(0, ctx, ch.last_y + blk_offset + (group_y >> shift))
     if group_x > 3:
         count = (group_x - 2) >> 1
         rem = lx - int(scans.MIN_IN_GROUP[group_x])
@@ -234,14 +249,14 @@ def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
         first_nz_in_cg = 16
 
         if scan_pos_sig == scan_pos_last:
-            v = int(flat[pos_last])
+            v = flat[pos_last]
             abs_coeffs.append(abs(v))
             coeff_signs = 1 if v < 0 else 0
             num_nonzero = 1
             last_nz_in_cg = first_nz_in_cg = scan_pos_sig
             scan_pos_sig -= 1
 
-        cg_blk = int(scan_cg[subset])
+        cg_blk = scan_cg[subset]
         cg_y, cg_x = divmod(cg_blk, width_in_groups)
         if subset == last_scan_set or subset == 0:
             sig_cg[cg_blk] = 1
@@ -249,21 +264,18 @@ def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
             right = cg_x < width_in_groups - 1 and sig_cg[cg_blk + 1]
             below = cg_y < width_in_groups - 1 and sig_cg[cg_blk + width_in_groups]
             ctx_cg = 1 if (right or below) else 0
-            enc.encode_bin(int(sig_cg[cg_blk]), ctx, ch.sig_cg + ctx_cg)
+            encode_bin(sig_cg[cg_blk], ctx, ch.sig_cg + ctx_cg)
 
         if sig_cg[cg_blk]:
             right = cg_x < width_in_groups - 1 and sig_cg[cg_blk + 1]
             below = cg_y < width_in_groups - 1 and sig_cg[cg_blk + width_in_groups]
-            pattern = (1 if right else 0) + (2 if below else 0)
+            ctx_of = sig_ctx[(1 if right else 0) + (2 if below else 0)]
             while scan_pos_sig >= sub_pos:
-                rp = int(scan[scan_pos_sig])
-                py, px = divmod(rp, n)
-                sig = 1 if flat[rp] != 0 else 0
+                rp = scan[scan_pos_sig]
+                v = flat[rp]
                 if scan_pos_sig > sub_pos or subset == 0 or num_nonzero:
-                    ctx_sig = _sig_ctx(pattern, px, py, log2n, scan_type, first_ctx, ch)
-                    enc.encode_bin(sig, ctx, ctx_sig)
-                if sig:
-                    v = int(flat[rp])
+                    encode_bin(1 if v else 0, ctx, ctx_of[rp])
+                if v:
                     abs_coeffs.append(abs(v))
                     coeff_signs = 2 * coeff_signs + (1 if v < 0 else 0)
                     num_nonzero += 1
@@ -284,7 +296,7 @@ def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
             first_c2_idx = -1
             for idx in range(num_c1):
                 symbol = 1 if abs_coeffs[idx] > 1 else 0
-                enc.encode_bin(symbol, ctx, base_g1 + c1)
+                encode_bin(symbol, ctx, base_g1 + c1)
                 if symbol:
                     c1 = 0
                     if first_c2_idx == -1:
@@ -295,7 +307,7 @@ def encode_coefficients(enc: cabac.CabacEncoder, ctx: np.ndarray,
                     c1 += 1
             if c1 == 0 and first_c2_idx != -1:
                 symbol = 1 if abs_coeffs[first_c2_idx] > 2 else 0
-                enc.encode_bin(symbol, ctx, ch.greater2 + ctx_set)
+                encode_bin(symbol, ctx, ch.greater2 + ctx_set)
                 if symbol:
                     escape_present = True
             escape_present = escape_present or (num_nonzero > C1FLAG_NUMBER)

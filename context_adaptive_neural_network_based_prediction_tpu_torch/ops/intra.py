@@ -11,7 +11,8 @@ predicts all 35 modes of N blocks from their references with one gather
 and exact int32 arithmetic, bit for bit the JAX package's;
 `predict_best_mode` (:323) keeps the max-PSNR mode of each block.
 `predict_one_mode_np` (:217) predicts one mode of one block in numpy, the
-decoder's per-TU form.
+decoders' per-TU form, and `predict_all_modes_np` (:172) all 35 of N
+blocks in numpy, the host RDO encoder's per-PU sweep.
 Reference layout: ref_top[n] = [corner, top_0, ..., top_{2w-1}] and
 ref_left[n] = [corner, left_0, ..., left_{2w-1}] (length 2w + 1 each).
 """
@@ -103,6 +104,50 @@ def _tables_on(width: int, device: str):
     g0, g1, frac, _ = _angular_tables(width)
     return tuple(torch.from_numpy(a).to(device) for a in
                  (g0.astype(np.int64), g1.astype(np.int64), frac))
+
+
+def predict_all_modes_np(ref_top, ref_left, *,
+                         filtered_edges: bool = True) -> np.ndarray:
+    """All 35 modes of N blocks in numpy (JAX package :172): the host RDO
+    encoder's per-PU sweep, the same integer semantics as
+    `predict_all_modes`.  ref_top/ref_left (N, 2w+1) -> (N, 35, w, w)
+    int32."""
+    ref_top = np.asarray(ref_top, dtype=np.int32)
+    ref_left = np.asarray(ref_left, dtype=np.int32)
+    w = (ref_top.shape[1] - 1) // 2
+    n = ref_top.shape[0]
+    s = int(np.log2(w))
+    g0, g1, frac, _ = _angular_tables(w)
+    comb = np.concatenate([ref_top, ref_left], axis=1)
+    ang = ((32 - frac) * comb[:, g0] + frac * comb[:, g1] + 16) >> 5
+
+    if filtered_edges and w <= MAX_INTRA_FILTERED:
+        col_adj = (ref_left[:, 1:w + 1] - ref_left[:, 0:1]) >> 1
+        ang[:, VER_IDX - 2, :, 0] = np.clip(
+            ang[:, VER_IDX - 2, :, 0] + col_adj, 0, 255)
+        row_adj = (ref_top[:, 1:w + 1] - ref_top[:, 0:1]) >> 1
+        ang[:, HOR_IDX - 2, 0, :] = np.clip(
+            ang[:, HOR_IDX - 2, 0, :] + row_adj, 0, 255)
+
+    top_w = ref_top[:, 1:w + 1]
+    left_w = ref_left[:, 1:w + 1]
+    dc = (np.sum(top_w, axis=1) + np.sum(left_w, axis=1) + w) // (2 * w)
+    dc_blk = np.broadcast_to(dc[:, None, None], (n, w, w)).copy()
+    if filtered_edges and w <= MAX_INTRA_FILTERED:
+        dc_blk[:, 0, :] = (top_w + 3 * dc[:, None] + 2) >> 2
+        dc_blk[:, 1:, 0] = (left_w[:, 1:] + 3 * dc[:, None] + 2) >> 2
+        dc_blk[:, 0, 0] = (top_w[:, 0] + left_w[:, 0] + 2 * dc + 2) >> 2
+
+    T = top_w[:, None, :]
+    L = left_w[:, :, None]
+    TR = ref_top[:, w + 1][:, None, None]
+    BL = ref_left[:, w + 1][:, None, None]
+    xs = np.arange(w)[None, None, :]
+    ys = np.arange(w)[None, :, None]
+    planar = (((L << s) + w + (xs + 1) * (TR - L))
+              + ((T << s) + (ys + 1) * (BL - T))) >> (s + 1)
+    return np.concatenate([planar[:, None], dc_blk[:, None], ang],
+                          axis=1).astype(np.int32)
 
 
 def predict_one_mode_np(ref_top: np.ndarray, ref_left: np.ndarray, mode: int,

@@ -4,9 +4,10 @@ The port's copy of the constants of the JAX package's `ops/transform.py`
 that the wavefront encoder's tables need: the DST-VII 4x4 pair, the integer
 DCT-II of sizes 4-32 (6-bit and 14-bit high-precision forward), and the
 quantiser scales.  The encoder's transforms run inside the fused unit
-trial (`ops/unit_fused.py`, `ops/csrc/unit_trial.cu`); the decoder's
-dequantisation and inverse transform are the numpy twins here
-(`dequantize_np`, `inverse_transform_np`, exact integer arithmetic).
+trial (`ops/unit_fused.py`, `ops/csrc/unit_trial.cu`); the host codec's
+transforms and quantisers are the numpy twins here (`forward_transform_np`,
+`quantize_np`, `dequantize_np`, `inverse_transform_np`, exact integer
+arithmetic).
 """
 
 from __future__ import annotations
@@ -92,6 +93,23 @@ def transform_shift(log2_n: int, bit_depth: int = BIT_DEPTH) -> int:
     return MAX_TR_DYNAMIC_RANGE - bit_depth - log2_n
 
 
+def forward_transform_np(residuals: np.ndarray, *, use_dst: bool = False,
+                         bit_depth: int = BIT_DEPTH) -> np.ndarray:
+    """HM's forward transform of (B, n, n) residuals (JAX package :258),
+    the 14-bit high-precision matrices, exact in int64."""
+    n = residuals.shape[-1]
+    log2n = n.bit_length() - 1
+    t = (DST4_FWD if use_dst
+         else np.asarray(dct_matrix(n, True), np.int32)).astype(np.int64)
+    shift1 = log2n + bit_depth + FWD_MATRIX_SHIFT - MAX_TR_DYNAMIC_RANGE
+    shift2 = log2n + FWD_MATRIX_SHIFT
+    add1 = (1 << (shift1 - 1)) if shift1 > 0 else 0
+    add2 = 1 << (shift2 - 1)
+    r = residuals.astype(np.int64)
+    a = (np.einsum("bin,kn->bik", r, t) + add1) >> shift1
+    return ((np.einsum("ki,bil->bkl", t, a) + add2) >> shift2).astype(np.int32)
+
+
 def inverse_transform_np(coeffs: np.ndarray, *, use_dst: bool = False,
                          bit_depth: int = BIT_DEPTH) -> np.ndarray:
     """Numpy twin of `inverse_transform`."""
@@ -106,6 +124,21 @@ def inverse_transform_np(coeffs: np.ndarray, *, use_dst: bool = False,
     e = np.clip((np.einsum("ki,bkl->bil", t, c) + add1) >> shift1, lo, hi)
     r = (np.einsum("bik,kn->bin", e, t) + add2) >> shift2
     return np.clip(r, -32768, 32767).astype(np.int32)
+
+
+def quantize_np(coeffs: np.ndarray, qp: int, *, is_intra_slice: bool = True,
+                bit_depth: int = BIT_DEPTH) -> np.ndarray:
+    """HM's scalar quantiser (no RDOQ) of (B, n, n) coefficients (JAX
+    package :290)."""
+    n = coeffs.shape[-1]
+    log2n = n.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    qbits = QUANT_SHIFT + per + transform_shift(log2n, bit_depth)
+    add = (171 if is_intra_slice else 85) << (qbits - 9)
+    c = coeffs.astype(np.int64)
+    q = np.sign(c) * ((np.abs(c) * QUANT_SCALES[rem] + add) >> qbits)
+    lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
+    return np.clip(q, lo, hi).astype(np.int32)
 
 
 def dequantize_np(qcoeffs: np.ndarray, qp: int, *, bit_depth: int = BIT_DEPTH) -> np.ndarray:

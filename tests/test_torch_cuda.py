@@ -145,7 +145,7 @@ def merger_inputs(m, n, seed, extreme):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [32, 64, 128, 256])
+@pytest.mark.parametrize("m", [32, 64, 128, 256, 512])
 @pytest.mark.parametrize("n", [1, 17, 31])
 @pytest.mark.parametrize("extreme", [False, True])
 def test_merger_kernel_matches_plain(dev, m, n, extreme):
@@ -644,3 +644,85 @@ def test_quantize_on_card_matches_jax_goldens(dev, name):
     launched = sum(fc_forward.launches.values()) + sum(
         merger.launches.values())
     assert launched == (3 if "_fc_" in name else 1)
+
+
+# ------------------------------------------------------------ host codec --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pnn_w4_fc_pair", "pnn_w8_fc_pair",
+                                  "pnn_w4_refconv_single", "pnn_w16_pair",
+                                  "pnn_w32_pair", "pnn_w32_single"])
+def test_host_float_forward_at_one_context(dev, name):
+    """The host encoder's float fallback: one context (N = 1) through the
+    frozen float model's kernels (FC chain or float merger) against the
+    plain versions, within 1e-4 of max |plain|.  The float w64 models
+    (73 MiB each) are not copied to the card; the float merger at
+    M = 512, N = 1 is in `test_float_merger_kernel_matches_plain`."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import pnn
+
+    params, is_fc = zoo.load_frozen_params(os.path.join(
+        REPO, "artifacts", "frozen", name + ".npz"))
+    w = int(name.split("_")[1][1:])
+    tp = zoo.params_from_numpy(params, dev)
+    rng = np.random.default_rng(w)
+    if is_fc:
+        inputs = torch.from_numpy(rng.normal(0, 30, (1, 5 * w * w)).astype(
+            np.float32)).to(dev)
+    else:
+        inputs = tuple(torch.from_numpy(rng.normal(0, 30, s).astype(
+            np.float32)).to(dev) for s in ((1, w, 3 * w, 1),
+                                           (1, 2 * w, w, 1)))
+    fc_forward.reset_launch_counts()
+    merger.reset_launch_counts()
+    got = pnn.forward(tp, inputs, w, is_fc)
+    counts = (sum(fc_forward.launches.values()),
+              sum(merger.launches.values()))
+    orig = fc_forward.fc_forward, merger.merger_forward
+    fc_forward.fc_forward = lambda x, ws, bs, impl="kernel": orig[0](
+        x, ws, bs, impl="plain")
+    merger.merger_forward = lambda x, w_, b, act=False, impl="kernel": \
+        orig[1](x, w_, b, act=act, impl="plain")
+    try:
+        want = pnn.forward(tp, inputs, w, is_fc)
+    finally:
+        fc_forward.fc_forward, merger.merger_forward = orig
+    assert counts == ((4, 0) if is_fc else (0, 1))
+    assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,qp", [("regular", 27), ("switch", 37),
+                                       ("substitution", 27)])
+def test_host_encode_on_card_matches_jax_digests(dev, policy, qp):
+    """`FrameEncoder` on the card (the quantized zoo's forwards through
+    the integer merger kernel, w64 at M = 512) against
+    `tests/golden_torch/host_codec.json`, decoded back by the port's
+    decoder and, as an Annex-B stream, by its HM-syntax decoder."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import decoder, encoder, hm_decoder, hm_encoder
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .evaluation import host_cases as hc
+
+    with open(hc.GOLDEN) as f:
+        want = json.load(f)["encodes"][f"natural128/{policy}/q{qp}"]
+    bundle = (zoo.load_quantized_bundle(hc.MANIFEST_QUANTIZED,
+                                        hc.mean_training())
+              if policy != "regular" else None)
+    frame = hc.load_frame("natural128")
+    merger_int.reset_launch_counts()
+    res = encoder.encode_frame(frame, qp, policy=policy, pnn=bundle,
+                               device=dev)
+    assert sha256(res.bitstream) == want["stream"]
+    assert sha256(np.asarray(res.reconstruction, np.uint8)) == want["recon"]
+    assert sha256(np.asarray(res.mode_map, np.int32)) == want["mode_map"]
+    if policy != "regular":
+        assert sum(merger_int.launches.values()) > 0
+    dec = decoder.decode_frame(res.bitstream, pnn=bundle, device=dev)
+    np.testing.assert_array_equal(dec.reconstruction, res.reconstruction)
+    stream, res_hm = hm_encoder.encode_frame_hm(frame, qp, policy=policy,
+                                                pnn=bundle, device=dev)
+    hd = hm_decoder.decode_hm_stream(stream, policy=policy, pnn=bundle,
+                                     device=dev, use_native="always")
+    assert hd.hash_ok
+    np.testing.assert_array_equal(hd.reconstruction, res_hm.reconstruction)

@@ -7,41 +7,31 @@ the JAX package's `CabacEncoder` bins (context-coded, bypass, terminate),
 every scan with sign hiding on and off, the intra mode syntax and MPM
 rules, the reference-sample availability, fill filter and per-mode
 choice, the one-mode prediction, dequantisation and inverse transforms,
-and the PNN predictor on all ten `artifacts/frozen/qpnn_*.npz`.  Then
-whole decodes (on the CPU): the port's regular, switch and substitution
-streams of the 128x128 natural crop at QP 32 (frozen singles zoo, which
-codes PNN PUs there), single-frame and from a 2-frame batch, decode to
-the encoder's reconstruction and to the JAX decoder's reconstruction and
-mode map.  A header with deblocking or SAO set decodes as the JAX decoder
-decodes it (`test_torch_loop_filters.py` holds the loop filters).
+and the PNN predictor on all ten `artifacts/frozen/qpnn_*.npz`.  The
+whole decodes are in `test_torch_decoder_frames.py`.
 """
 
 import os
 import pickle
-import struct
-import types
 
 import numpy as np
 import pytest
 import torch
 
 from context_adaptive_neural_network_based_prediction_tpu.codec import (
-    cabac as j_cabac, contexts as j_contexts, decoder as j_decoder,
-    encoder as j_encoder, nn_intra as j_nn_intra, syntax as j_syntax)
+    cabac as j_cabac, contexts as j_contexts, encoder as j_encoder,
+    nn_intra as j_nn_intra, syntax as j_syntax)
 from context_adaptive_neural_network_based_prediction_tpu.models import (
     pnn_q as j_pnn_q)
 from context_adaptive_neural_network_based_prediction_tpu.ops import (
     intra as j_intra, reference_samples as j_rs, transform as j_transform)
 from context_adaptive_neural_network_based_prediction_tpu_torch.codec import (
-    cabac as t_cabac, contexts as t_contexts, decoder as t_decoder,
-    encoder as t_encoder, nn_intra as t_nn_intra, scans as t_scans,
-    syntax as t_syntax)
+    cabac as t_cabac, contexts as t_contexts, encoder as t_encoder,
+    nn_intra as t_nn_intra, scans as t_scans, syntax as t_syntax)
 from context_adaptive_neural_network_based_prediction_tpu_torch.models import (
-    pnn_q as t_pnn_q, zoo as t_zoo)
+    pnn_q as t_pnn_q)
 from context_adaptive_neural_network_based_prediction_tpu_torch.ops import (
     intra as t_intra, reference_samples as t_rs, transform as t_transform)
-from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import (
-    wavefront2 as t_wavefront2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FROZEN = os.path.join(REPO, "artifacts", "frozen")
@@ -59,7 +49,7 @@ def mean_training():
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
@@ -325,114 +315,13 @@ def test_pnn_predictor_matches_jax(name):
 
 
 def test_float_only_width_raises():
-    bundle = types.SimpleNamespace(
-        params={8: {}}, mean_for=lambda n: 100.0,
-        quantized_for_qp=lambda qp: {})
+    """A width with only a float model runs the float forward (the JAX
+    package's fallback, `codec/nn_intra.py:225-232`); a float model that
+    lacks its layers raises rather than predicting zeros."""
+    bundle = t_nn_intra.PnnBundle(None, 100.0, params={8: {}})
     pred = t_nn_intra.PnnPredictor(bundle, device="cpu")
     assert not pred.supports(4)
-    with pytest.raises(NotImplementedError, match="A9"):
+    assert pred.supports(8)
+    with pytest.raises(KeyError, match="convolutional"):
         pred.predict(np.zeros((32, 32), np.int32), 8, 8, 8,
                      np.ones(9, bool))
-
-
-# ------------------------------------------------------- whole frames ----
-
-@pytest.fixture(scope="module")
-def bundles():
-    quantized = {w: j_pnn_q.load_quantized(os.path.join(
-        FROZEN, f"qpnn_w{w}_single.npz")) for w in (4, 8, 16, 32)}
-    j_bundle = j_nn_intra.PnnBundle(
-        {}, {w: str(q["kind"]) == "fc" for w, q in quantized.items()},
-        mean_training(), quantized=quantized)
-    t_bundle = t_zoo.load_quantized_bundle(MANIFEST, mean_training(),
-                                           use_pair=False,
-                                           widths=(4, 8, 16, 32))
-    return j_bundle, t_bundle
-
-
-def natural():
-    return np.load(os.path.join(REPO, "tests", "golden_hm",
-                                "128_full_q32_src.npy"))
-
-
-@pytest.fixture(scope="module")
-def streams(bundles):
-    """{case: EncodeResult} of the port's encodes on the CPU: each policy
-    single-frame, and frame 1 of a 2-frame batch (natural, natural flipped
-    left-right) under substitution and regular."""
-    _, t_bundle = bundles
-    f = natural()
-    out = {}
-    for policy in ("regular", "switch", "substitution"):
-        out[policy] = t_wavefront2.encode_frame_wavefront2(
-            f, QP, policy=policy,
-            pnn=t_bundle if policy != "regular" else None, device="cpu")
-    pair = np.stack([f, np.ascontiguousarray(f[:, ::-1])])
-    for policy in ("regular", "substitution"):
-        out[policy + "_batch"] = t_wavefront2.encode_frames_wavefront2_batch(
-            pair, QP, policy=policy,
-            pnn=t_bundle if policy != "regular" else None, serialize=True,
-            device="cpu")[1]
-    return out
-
-
-CASES = ("regular", "switch", "substitution", "regular_batch",
-         "substitution_batch")
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_decode_frame_matches_encoder_and_jax_decoder(bundles, streams,
-                                                      case):
-    j_bundle, t_bundle = bundles
-    res = streams[case]
-    nn = not case.startswith("regular")
-    got = t_decoder.decode_frame(res.bitstream, pnn=t_bundle if nn else None,
-                                 device="cpu")
-    want = j_decoder.decode_frame(
-        res.bitstream, pnn=j_nn_intra.PnnPredictor(j_bundle) if nn else None)
-    np.testing.assert_array_equal(got.reconstruction, res.reconstruction)
-    np.testing.assert_array_equal(got.reconstruction,
-                                  np.asarray(want.reconstruction))
-    np.testing.assert_array_equal(got.mode_map, want.mode_map)
-    assert (got.qp, got.policy) == (want.qp, want.policy)
-    if res.mode_map is not None:
-        np.testing.assert_array_equal(got.mode_map, res.mode_map)
-
-
-@pytest.mark.parametrize("case", ["switch", "substitution",
-                                  "substitution_batch"])
-def test_decoded_nn_streams_code_pnn_pus(bundles, streams, case):
-    """The PNN decides PUs of these streams, and the decoder runs one
-    conv forward per PNN-coded PU with an available context (the frozen
-    singles are all conv)."""
-    _, t_bundle = bundles
-    dec = t_decoder.FrameDecoder(streams[case].bitstream, pnn=t_bundle,
-                                 device="cpu")
-    res = dec.decode()
-    mode = 35 if case == "switch" else 18
-    assert (res.mode_map == mode).any()
-    assert dec.pnn.forwards["fc"] == 0 and dec.pnn.forwards["conv"] > 0
-
-
-@pytest.mark.parametrize("flag", ["deblocking", "has_sao"])
-def test_loop_filter_headers_raise(streams, flag):
-    """A header with deblocking or SAO on no longer raises: the decoder
-    runs the loop filter as the JAX decoder does (SAO parameters read
-    after the last CU, deblocking on the TU map), on the same bytes."""
-    payload = streams["regular"].bitstream[struct.calcsize("<4sBBBBBBBBBII"):]
-    header = t_encoder.stream_header(width=128, height=128, qp=QP,
-                                     policy="regular", ctu_size=32,
-                                     sign_hiding=True, **{flag: True})
-    got = t_decoder.decode_frame(header + payload, device="cpu")
-    want = j_decoder.decode_frame(header + payload)
-    np.testing.assert_array_equal(got.reconstruction,
-                                  np.asarray(want.reconstruction))
-    np.testing.assert_array_equal(got.mode_map, want.mode_map)
-    if flag == "deblocking":
-        assert not np.array_equal(got.reconstruction,
-                                  streams["regular"].reconstruction)
-
-
-def test_nn_stream_needs_a_predictor(streams):
-    with pytest.raises(ValueError):
-        t_decoder.decode_frame(streams["switch"].bitstream, device="cpu")

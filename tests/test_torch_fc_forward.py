@@ -41,6 +41,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEAN = 86.8568
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def jax_params(w):
     """The JAX package's FC init at width w, with seeded nonzero biases,
     as numpy."""

@@ -19,8 +19,12 @@ stock HM-16.15 decoding the port's streams, with zero tolerance.
   writes the port's reconstruction; the JAX package's
   `hm_decoder.decode_hm_stream(..., policy=, pnn=)` decodes the port's NN
   streams to the port's reconstruction.
+
+The checks of the encodes (the last three points) are defined here and
+run in `test_torch_hm_stream_ctb32.py`, `_ctb64.py` and `_smooth.py`.
 """
 
+import copy
 import hashlib
 import json
 import os
@@ -60,7 +64,7 @@ def golden():
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
@@ -240,28 +244,59 @@ def test_encode_coefficients_matches_jax(n, sign_hiding):
 
 # --------------------------------------------------- slices and streams --
 
-@pytest.fixture(scope="module")
-def hm_encodes():
-    """The port's `encode_frame_wavefront2_hm` of every `w2_hm.json` entry
-    on the CPU: {key: (stream, EncodeResult)}."""
-    g = golden()["encodes"]
-    fr = frames()
-    bundles = {}
-    out = {}
-    for key, e in g.items():
+class HmEncodes(dict):
+    """The port's `encode_frame_wavefront2_hm` of `w2_hm.json` entries on
+    the CPU, {key: (stream, EncodeResult)}, each made when a test first
+    asks for it (a file encodes only the entries it checks).
+
+    The loop filters are post-passes over the decisions, so the `lf` and
+    `nolf` entries of one configuration share one device encode
+    (`encode_frame_wavefront2`, which `encode_frame_wavefront2_hm` calls):
+    it runs once, and each call gets a copy of its result."""
+
+    def __init__(self):
+        super().__init__()
+        self.bundles = {}
+        self.device_encodes = {}
+
+    def __missing__(self, key):
+        e = golden()["encodes"][key]
         pnn = None
         if e["policy"] != "regular":
-            if e["bundle"] not in bundles:
-                bundles[e["bundle"]] = port_bundle(e["bundle"])
-            pnn = bundles[e["bundle"]]
-        out[key] = t_wavefront2.encode_frame_wavefront2_hm(
-            fr[e["frame"]], e["qp"], loop_filters=e["loop_filters"],
-            policy=e["policy"], pnn=pnn, ctb=e["ctb"], device="cpu")
-    return out
+            if e["bundle"] not in self.bundles:
+                self.bundles[e["bundle"]] = port_bundle(e["bundle"])
+            pnn = self.bundles[e["bundle"]]
+        inner = t_wavefront2.encode_frame_wavefront2
+
+        def shared(frame, qp, **kw):
+            k = (frame.tobytes(), qp, kw["policy"], id(kw["pnn"]), kw["ctb"])
+            if k not in self.device_encodes:
+                self.device_encodes[k] = inner(frame, qp, **kw)
+            return copy.deepcopy(self.device_encodes[k])
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(t_wavefront2, "encode_frame_wavefront2", shared)
+            self[key] = t_wavefront2.encode_frame_wavefront2_hm(
+                frames()[e["frame"]], e["qp"],
+                loop_filters=e["loop_filters"], policy=e["policy"],
+                pnn=pnn, ctb=e["ctb"], device="cpu")
+        return self[key]
 
 
-@pytest.mark.parametrize("key", sorted(golden()["encodes"]))
-def test_hm_stream_matches_jax_digests(hm_encodes, key):
+@pytest.fixture(scope="module")
+def hm_encodes():
+    return HmEncodes()
+
+
+# The checks of the encodes; the tests that run them are in
+# `test_torch_hm_stream_ctb32.py`, `_ctb64.py` and `_smooth.py`, each a
+# part of the entries, so that they run side by side.
+def keys(prefix, pred=lambda k: True):
+    return [k for k in sorted(golden()["encodes"])
+            if k.startswith(prefix) and pred(k)]
+
+
+def check_digests(hm_encodes, key):
     want = golden()["encodes"][key]
     stream, res = hm_encodes[key]
     assert len(stream) == want["stream_len"]
@@ -269,12 +304,15 @@ def test_hm_stream_matches_jax_digests(hm_encodes, key):
     assert sha(np.asarray(res.reconstruction, np.uint8)) == want["recon"]
     assert sha(np.asarray(res.mode_map, np.int32)) == want["mode_map"]
     assert res.num_bits == 8 * len(stream) and res.bitstream == stream
+    if key.endswith("/lf"):
+        # The nolf twin shares the device encode: the same decisions.
+        twin = key[:-len("lf")] + "nolf"
+        if twin in golden()["encodes"]:
+            assert (golden()["encodes"][twin]["mode_map"]
+                    == want["mode_map"])
 
 
-@pytest.mark.parametrize("key", ["natural128/switch/ctb64/lf",
-                                 "natural128/regular/ctb32/lf",
-                                 "smooth64x128/regular/ctb64/lf"])
-def test_serialize_hm_slice_matches_jax(hm_encodes, key):
+def check_serialize_hm_slice(hm_encodes, key):
     """The slice serialiser and the stream assembly of both packages on
     the same trees and SAO grid (the port's, re-estimated)."""
     e = golden()["encodes"][key]
@@ -314,9 +352,7 @@ def hm_decode(stream, h, w, tmp_path):
     return proc.stdout, luma.reshape(h, w)
 
 
-@pytest.mark.parametrize("key", [k for k in sorted(golden()["encodes"])
-                                 if "/regular/" in k])
-def test_stock_hm_decodes_port_regular_stream(hm_encodes, key, tmp_path):
+def check_stock_hm(hm_encodes, key, tmp_path):
     stream, res = hm_encodes[key]
     out, luma = hm_decode(stream, *res.reconstruction.shape, tmp_path)
     assert "(OK)" in out, out
@@ -335,10 +371,7 @@ def jax_bundles():
     return {"random": jax_random_bundle(), "frozen_singles": frozen}
 
 
-@pytest.mark.parametrize("key", [k for k in sorted(golden()["encodes"])
-                                 if "/regular/" not in k
-                                 and k.startswith("natural128")])
-def test_jax_hm_decoder_reads_port_nn_stream(hm_encodes, jax_bundles, key):
+def check_jax_hm_decoder(hm_encodes, jax_bundles, key):
     e = golden()["encodes"][key]
     stream, res = hm_encodes[key]
     dec = j_hm_decoder.decode_hm_stream(

@@ -14,6 +14,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 from context_adaptive_neural_network_based_prediction_tpu.codec import (
     cabac as j_cabac, contexts as j_contexts, decoder as j_decoder,
@@ -23,6 +24,14 @@ from context_adaptive_neural_network_based_prediction_tpu_torch.codec import (
     decoder as t_decoder, native as t_native, rdo as t_rdo, sao as t_sao)
 
 from test_torch_wavefront2_ctb64 import frames
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def blocky(rng, h, w):

@@ -28,6 +28,14 @@ from context_adaptive_neural_network_based_prediction_tpu_torch.ops import (
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def data(w, batch, seed):
     """Branch features and merger weights of the conv PNN at width w, the
     JAX package's layout: weights (M, P, O), biases (M, O)."""

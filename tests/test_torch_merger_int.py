@@ -35,6 +35,14 @@ SLOTS = (1, 17, 31)
 P, O = 80, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def frozen_caps():
     """The largest merger input cap and weight magnitude of the frozen
     zoo's conv models."""

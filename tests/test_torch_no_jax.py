@@ -1,9 +1,10 @@
 """The port and `chip_smoke.py` import nothing of JAX and nothing of the
 JAX package: a scan of every Python file of the port package and of
 `chip_smoke.py` for import statements (and `import_module` / `__import__`
-calls) that name `jax`, `jaxlib` or the JAX package, and a fresh process
-that runs the CTB-64 Annex-B path and the loop-filtered decode and loads
-neither."""
+calls) that name `jax`, `jaxlib` or the JAX package, and fresh processes
+that run the CTB-64 Annex-B path and the loop-filtered decode, the v1 and
+quantize paths, and the host RDO codec, and load neither.  Each child
+runs torch on one thread, as the test files cap their own."""
 
 import glob
 import json
@@ -27,6 +28,12 @@ PATTERNS = (
 FILES = sorted(glob.glob(os.path.join(REPO, PORT, "**", "*.py"),
                          recursive=True)) + [os.path.join(REPO,
                                                           "chip_smoke.py")]
+
+
+def child_env():
+    """A child process's environment: the repository on the path and one
+    thread, as the test files cap their own."""
+    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
 
 
 def offending(text):
@@ -66,7 +73,8 @@ def test_annexb_path_runs_without_jax():
     no module of JAX or of the JAX package."""
     code = (
         "import json, sys\n"
-        "import numpy as np\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
         f"from {PORT}.codec import decoder, encoder, native\n"
         f"from {PORT}.parallel import wavefront2\n"
         "rng = np.random.default_rng(0)\n"
@@ -86,7 +94,7 @@ def test_annexb_path_runs_without_jax():
         "print(json.dumps(dict(bad=bad, n=len(s), shape=list("
         "d.reconstruction.shape))))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          env=dict(os.environ, PYTHONPATH=REPO),
+                          env=child_env(),
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -106,7 +114,8 @@ def test_v1_and_quantize_paths_run_without_jax():
     and has loaded no module of JAX or of the JAX package."""
     code = (
         "import json, pickle, sys\n"
-        "import numpy as np\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
         f"from {PORT}.codec import decoder\n"
         f"from {PORT}.models import zoo\n"
         f"from {PORT}.parallel import wavefront\n"
@@ -125,9 +134,59 @@ def test_v1_and_quantize_paths_run_without_jax():
         "d.reconstruction, r.reconstruction)), kind=str(b.quantized[8]"
         "['kind']))))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          env=dict(os.environ, PYTHONPATH=REPO),
+                          env=child_env(),
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == dict(bad=[], n=out["n"], same=True, kind="conv")
     assert out["n"] > 0
+
+
+def test_the_scan_covers_the_host_codec_slice():
+    names = {os.path.relpath(f, os.path.join(REPO, PORT)) for f in FILES}
+    for mod in ("codec/encoder.py", "codec/rdo.py", "codec/rdoq.py",
+                "codec/chroma_enc.py", "codec/hm_decoder.py",
+                "codec/hm_bitstream.py", "codec/hm_encoder.py",
+                "evaluation/performance.py", "evaluation/host_cases.py",
+                "utils/metrics.py"):
+        assert mod in names, mod
+
+
+def test_host_codec_path_runs_without_jax():
+    """A fresh process runs the host RDO encoder (framework and Annex-B
+    4:2:0 streams), the HM-syntax decoder with both slice parsers and
+    `compute_rate_psnr`, and has loaded no module of JAX or of the JAX
+    package."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        f"from {PORT}.codec import decoder, encoder, hm_decoder,"
+        " hm_encoder\n"
+        f"from {PORT}.evaluation import performance\n"
+        "rng = np.random.default_rng(0)\n"
+        "y = rng.integers(90, 160, (32, 48)).astype(np.uint8)\n"
+        "cb, cr = y[::2, ::2].copy(), y[1::2, 1::2].copy()\n"
+        "r = encoder.encode_frame(y, 32, device='cpu')\n"
+        "d = decoder.decode_frame(r.bitstream, device='cpu')\n"
+        "s, r4, rcb, rcr = hm_encoder.encode_frame_hm_420((y, cb, cr), 32,"
+        " device='cpu')\n"
+        "h = [hm_decoder.decode_hm_stream(s, use_native=u) for u in"
+        " ('always', 'never')]\n"
+        "p = performance.compute_rate_psnr(y, 32, use_hm_container=True,"
+        " device='cpu')\n"
+        f"ref = '{REF}'\n"
+        "bad = [m for m in sys.modules if m.startswith('jax')"
+        " or m == ref or m.startswith(ref + '.')]\n"
+        "same = bool(np.array_equal(d.reconstruction, r.reconstruction)"
+        " and all(np.array_equal(x.reconstruction_cb, rcb)"
+        " and np.array_equal(x.reconstruction, r4.reconstruction)"
+        " for x in h))\n"
+        "print(json.dumps(dict(bad=bad, same=same, ok=all(x.hash_ok for x"
+        " in h), rate=p.rate_bpp > 0)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=child_env(), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == dict(bad=[], same=True, ok=True, rate=True)

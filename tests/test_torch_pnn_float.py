@@ -38,6 +38,14 @@ j_predict_uint8 = jax.jit(j_pnn.predict_uint8, static_argnums=(2, 3, 4))
 j_init_params = jax.jit(j_pnn.init_params, static_argnums=(1, 2))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def width_of(name):
     return int(name.split("_")[1][1:])
 

@@ -48,7 +48,7 @@ BATCHES = {"batch1": slice(0, 1), "batch31": slice(1, 32),
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 

@@ -56,6 +56,14 @@ FRAME = np.load(os.path.join(REPO, "tests", "golden_hm",
 MEAN = 86.8568
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def references(w, n, seed):
     """Random references, then extremes (all 0, all 255, a 0/255
     alternation) in the last three rows."""

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from context_adaptive_neural_network_based_prediction_tpu.codec import (
     cabac as j_cabac, contexts as j_contexts, nn_intra as j_nn_intra,
@@ -39,6 +40,14 @@ from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import 
 from test_unit_fused import make_size_consts
 
 GROUPS = {4: 1, 8: 1, 16: 6, 32: 36}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def assert_same(a, b, what):

@@ -32,6 +32,14 @@ I32 = 2 ** 31
 CLIP = 32768
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def tables(n, qp):
     c = wavefront2._unit_consts(n, qp)
     return (np.asarray(c["t_fwd"], np.int64), np.asarray(c["t_inv"], np.int64),

@@ -48,7 +48,7 @@ def few_threads():
     # The suite runs in several worker processes; keep torch from
     # oversubscribing the cores.
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 

@@ -74,7 +74,7 @@ def as_items(recon, grids, stream):
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
@@ -205,7 +205,7 @@ def test_entry_point_imports_no_jax(port_off, tmp_path):
         " int(r.mode_map.max())],"
         " stream=hashlib.sha256(r.bitstream).hexdigest(),"
         " recon=hashlib.sha256(r.reconstruction.tobytes()).hexdigest())))\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -20,6 +20,8 @@ and the stream.  The port runs on the CPU (plain trial, plain merger).
 * The 2-frame 64x96 batch against the JAX package's batched program
   (`encode_frames_wavefront2_batch`, its default CPU path, rate evolution
   off), zero tolerance: regular, and switch with the random bundle.
+  The 3-frame cases and the check that the switch batches code PNNS PUs
+  are in `test_torch_wavefront2_batch3.py`.
 * `encode_stream_wavefront2` over 5 frames at batch 2 (two full batches
   and one padded) yields the single-frame results in input order;
   `workers=2` equals `workers=0`, and no worker process outlives the
@@ -74,7 +76,7 @@ def batch_frames(name):
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
@@ -123,17 +125,26 @@ def port_batch(frames, config, bundle):
     return out
 
 
+class Encodes(dict):
+    """{(config, batch): (singles, batch results)}, each case encoded when
+    a test first asks for it (a file encodes only the cases it checks)."""
+
+    def __init__(self, bundle):
+        super().__init__()
+        self.bundle = bundle
+
+    def __missing__(self, key):
+        config, name = key
+        frames = batch_frames(name)
+        self[key] = (
+            [port_single(f, config, self.bundle) for f in frames],
+            port_batch(frames, config, self.bundle))
+        return self[key]
+
+
 @pytest.fixture(scope="module")
 def encodes(port_bundle):
-    """{(config, batch): (singles, batch results)} for every case."""
-    out = {}
-    for config in CONFIGS:
-        for name in BATCHES:
-            frames = batch_frames(name)
-            out[config, name] = (
-                [port_single(f, config, port_bundle) for f in frames],
-                port_batch(frames, config, port_bundle))
-    return out
+    return Encodes(port_bundle)
 
 
 def assert_same_encode(got, want, what):
@@ -144,24 +155,19 @@ def assert_same_encode(got, want, what):
     assert got[2] == want[2], f"{what} stream"
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
-@pytest.mark.parametrize("name,frame", [(n, f) for n, b in BATCHES.items()
-                                        for f in range(b)])
-def test_batched_frame_equals_single_frame(encodes, config, name, frame):
+def check_batched_frame(encodes, config, name, frame):
     singles, batch = encodes[config, name]
     assert len(batch) == BATCHES[name]
     assert_same_encode(batch[frame], singles[frame],
                        f"{config} {name} frame {frame}")
 
 
-def test_switch_batches_code_pnns_pus(encodes):
-    """The random bundle's PNNS mode wins somewhere in the switch batches,
-    so the per-(slot, frame) PNN path decides part of what is compared.
-    (Under substitution its mode-18 prediction wins nowhere in these
-    frames; `tests/test_torch_decoder.py` decodes a batched substitution
-    stream of the frozen zoo that codes PNN PUs.)"""
-    found = [r[3] for name in BATCHES for r in encodes["switch", name][1]]
-    assert sum(found) > 0, found
+# The 3-frame 128x128 cases are in `test_torch_wavefront2_batch3.py`, so
+# that the two halves run side by side.
+@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("name,frame", [("b2_64x96", f) for f in range(2)])
+def test_batched_frame_equals_single_frame(encodes, config, name, frame):
+    check_batched_frame(encodes, config, name, frame)
 
 
 @pytest.fixture(scope="module")
@@ -235,7 +241,10 @@ def test_stream_builds_trees_on_request(stream_singles):
 
 
 def test_stream_process_pool_equals_in_process_and_shuts_down(
-        stream_singles):
+        stream_singles, monkeypatch):
+    # The spawned workers read one thread from their environment.
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
     def new_children():
         return set(multiprocessing.active_children()) - before
 

@@ -21,7 +21,8 @@ bundle of `w2_nn_random_bundle.npz` (its encodes choose 64x64 leaves); in
   equal the JAX package's digests, one frame a call (b = 1) and a batch
   of two (the frame and its mirror, b = 2); each batched frame equals its
   own b = 1 encode, and so does each frame of a CTB-64 stream.
-* A live JAX comparison: the switch encode of the smooth frame.
+* A live JAX comparison, the switch encode of the smooth frame, runs in
+  `test_torch_wavefront2_ctb64_live.py`.
 * `ctb=64, rate_evolve=True` raises `NotImplementedError` and `ctb=16`
   `ValueError`, as in the JAX package.
 """
@@ -34,8 +35,6 @@ import pickle
 import numpy as np
 import pytest
 import torch
-
-import jax.numpy as jnp
 
 from context_adaptive_neural_network_based_prediction_tpu.codec import (
     nn_intra as j_nn_intra)
@@ -51,7 +50,6 @@ from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import 
     wavefront2 as t_wavefront2)
 
 from test_torch_tables import assert_same, closure_vars
-from test_torch_wavefront_nn import jax_random_bundle
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden_torch", "w2_ctb64.json")
@@ -105,7 +103,7 @@ def port_bundle(name):
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
@@ -191,39 +189,6 @@ def test_golden_encodes_exercise_the_64_level():
                if k.startswith("smooth64x128"))
     assert all(e["pnn_pus"] > 0 for k, e in g.items()
                if k.startswith("natural128") and e["policy"] != "regular")
-
-
-# ----------------------------------------------------------- live JAX --
-
-def test_live_jax_switch_encode():
-    """The JAX package's default CPU encode (jitted, rate evolution off)
-    of the smooth frame under switch with the random bundle, live."""
-    e = golden()["encodes"]["smooth64x128/switch/b1/0"]
-    frame = frames()["smooth64x128"]
-    j_bundle = jax_random_bundle()
-    h, w = frame.shape
-    j_wavefront2._W2_CACHE.clear()
-    run = j_wavefront2._jitted_wavefront2(h, w, e["qp"], policy="switch",
-                                          bundle=j_bundle, ctb=64,
-                                          enable_nxn=True, rate_evolve=False)
-    recon, ys = run(jnp.asarray(frame))
-    j_wavefront2._W2_CACHE.clear()
-    j_grids = j_wavefront2._assemble_arrays(ys, h, w, 64)
-    j_res = j_wavefront2._arrays_to_result(frame, e["qp"],
-                                           (np.asarray(recon),) + j_grids,
-                                           "switch", True, ctb=64)
-    t_recon, t_grids = t_wavefront2.encode_arrays_wavefront2(
-        frame, e["qp"], policy="switch",
-        pnn=port_bundle("random"), ctb=64, device="cpu")
-    t_res = t_wavefront2._arrays_to_result(frame, e["qp"],
-                                           (t_recon,) + t_grids, "switch",
-                                           True, ctb=64)
-    np.testing.assert_array_equal(t_recon, np.asarray(recon))
-    for name, a, b in zip(GRIDS, t_grids, j_grids):
-        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
-    assert t_res.bitstream == j_res.bitstream
-    np.testing.assert_array_equal(t_res.mode_map, j_res.mode_map)
-    assert sha(t_res.bitstream) == e["stream"]
 
 
 # -------------------------------------------------------------- tables --

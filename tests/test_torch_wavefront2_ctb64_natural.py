@@ -19,7 +19,7 @@ from test_torch_wavefront2_ctb64 import (ITEMS, POLICIES, RUNS, check_golden,
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 

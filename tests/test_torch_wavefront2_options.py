@@ -30,7 +30,7 @@ OPTIONS = {"no_nxn": dict(enable_nxn=False), "lam_scale_0.7":
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 

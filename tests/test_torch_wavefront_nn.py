@@ -96,7 +96,7 @@ def pnn_pus(trees, policy, widths):
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
@@ -288,7 +288,7 @@ def test_nn_entry_point_imports_no_jax(port_runs, tmp_path):
         "print(json.dumps(dict(bad=bad, policy=r.policy,"
         " stream=hashlib.sha256(r.bitstream).hexdigest(),"
         " recon=hashlib.sha256(r.reconstruction.tobytes()).hexdigest())))\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
