@@ -18,7 +18,9 @@ prediction path (Tables I-V,
 frame's luma with the six float singles of the chip copy; and the host
 RDO codec behind the rate-distortion results (`FrameEncoder`, its Annex-B
 output in luma and 4:2:0, the HM-syntax decoder, `compute_rate_psnr`)
-with the whole w4-w64 quantized zoo and the float fallback.  It holds each
+with the whole w4-w64 quantized zoo and the float fallback; and PNN
+training (`models/training.py`) with checkpoint and resume, its trained
+models frozen, served, quantized and encoded with.  It holds each
 hand-written kernel against its plain PyTorch version.  Phases, each
 printing one line with its seconds:
 
@@ -148,6 +150,24 @@ printing one line with its seconds:
      by unit), the round trip exact, and the stream, reconstruction and
      mode map equal to the JAX package's where no coded PNN unit hit a
      tie
+ 19  (runs before 8) PNN training end to end: `TrainingPipeline` over the
+     shipped crop shard `artifacts/training_set/luminance/thread_0/
+     data_1.npz` (on-the-fly extraction, seed 0), the w8 FC and the w16
+     conv PNN at batch 100 with random masks in two `train_chunk`s of 25
+     steps (the LR boundaries at 25, 37 and 43), a checkpoint after the
+     first restored and its second chunk equal to the uninterrupted run bit
+     for bit, the first step's loss and gradients against the same step on
+     the CPU in float64 (loss within 1e-5 relative; per leaf 98% of the
+     gradients within 1e-4 of its max |g|, all within 5e-2), s/step and the
+     loss at steps 1, 25 and 50 (finite, lower at 50), no kernel launched
+     by training; 5 steps of the w64 conv PNN (s/step); both trained
+     models frozen (`export_pnn.freeze_checkpoint`) and loaded back,
+     `predict_by_batch` on 1024 contexts through the FC and float merger
+     kernels (launches counted, every call against its plain version:
+     FC <= 1e-4, merger <= 1e-5 of max |plain|), `PnnBundle.quantize`, and
+     a switch encode of the 128x128 natural frame with the quantized
+     trained w8 FC and w16 conv (w4, w32 from artifacts/frozen; trial and
+     integer merger launches counted), decoded back by the port's decoder
   8  per kernel, on phase-4, phase-6 and phase-9 inputs, and on the batched
      paths' (the trial at 124 slots from phase 10, the merger at N = 124
      from phase 11 and at N = 1 from phase 13's decode), CTB 64's (the
@@ -190,6 +210,7 @@ import hashlib
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -256,6 +277,11 @@ QUANTIZE_MODELS = ("pnn_w4_fc_single", "pnn_w8_fc_single",
 QUANTIZE_SWITCH = {"pnn_w4_refconv_single": 4, "pnn_w8_refconv_single": 8,
                    "pnn_w16_single": 16, "pnn_w32_single": 32}
 STEP_SPIN_CYCLES = 20_000_000   # about 10 ms: longer than a step's issue
+# Phase 19: one shipped crop shard (60 crops of 320x320), the reference's
+# batch of 100, two chunks of 25 steps, 5 steps of w64, 1024 contexts.
+TRAIN_SHARD = os.path.join(REPO, "artifacts", "training_set", "luminance",
+                           "thread_0", "data_1.npz")
+TRAIN_BATCH, TRAIN_CHUNK, W64_STEPS, TRAIN_CONTEXTS = 100, 25, 5, 1024
 # The kernel of one trial call, by unit size (profiler names).
 TRIAL_KERNELS = {4: ("trial_small_kernel",), 8: ("trial_small_kernel",),
                  16: ("trial_large_kernel",), 32: ("trial_large_kernel",)}
@@ -1531,6 +1557,10 @@ def main():
     with Phase("18 host codec"):
         host_launches = host_codec_phase(dev, smi, captured)
 
+    # ---- phase 19 (before 8): PNN training end to end ----
+    with Phase("19 training"):
+        training_phase(dev, smi)
+
     # ---- phase 8: per-kernel numbers at the main paths' shapes ----
     with Phase("8 kernel timing"):
         rows = []
@@ -1675,6 +1705,283 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def training_phase(dev, smi, *, batch=TRAIN_BATCH, chunk=TRAIN_CHUNK,
+                   w64_steps=W64_STEPS, n_contexts=TRAIN_CONTEXTS):
+    """Phase 19, PNN training end to end on `dev`: the shipped crop shard
+    through `TrainingPipeline` (on-the-fly extraction, seed 0), the w8 FC
+    and w16 conv PNNs trained in two `train_chunk`s with random masks (the
+    schedule's boundaries at 25, 37 and 43 of `2 * chunk` iterations), a
+    checkpoint after the first chunk restored and its second chunk held
+    equal to the uninterrupted run bit for bit, the first step's loss and
+    gradients held against the same step on the CPU in float64 (float32
+    gradients of sums over 1e5 positions cancel, so the CPU's float32 step
+    is no tight reference);
+    `w64_steps` steps of
+    the w64 conv PNN (timing); then both trained models frozen
+    (`export_pnn.freeze_checkpoint`), loaded back (`zoo.load_frozen_params`),
+    run by `predict_by_batch` on `n_contexts` contexts through kernels 4
+    and 5 (every call against its plain version, launches counted),
+    quantized (`PnnBundle.quantize`), and a switch encode of the 128x128
+    natural frame with them (w4 and w32 from artifacts/frozen) decoded
+    back by the port's decoder.  Training itself launches no kernel of the
+    port.  On a card every kernel of the path must have launched."""
+    import torch
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.cli \
+        import export_pnn
+    from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
+        import decoder, nn_intra
+    from context_adaptive_neural_network_based_prediction_tpu_torch.data \
+        import datasets, masking
+    from context_adaptive_neural_network_based_prediction_tpu_torch.data \
+        .pipeline import TrainingPipeline
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import pnn, training, zoo
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import fc_forward, merger
+    from context_adaptive_neural_network_based_prediction_tpu_torch.parallel \
+        import wavefront2
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mean = datasets.load_mean_training(MEAN_PKL)
+    total = 2 * chunk
+    frozen = {}
+    tmp = tempfile.mkdtemp(prefix="train_")
+    try:
+        shards = os.path.join(tmp, "shards", "thread_0")
+        os.makedirs(shards)
+        os.symlink(TRAIN_SHARD, os.path.join(shards, "data_1.npz"))
+        for w, fc in ((8, True), (16, False), (64, False)):
+            name = f"w{w} {'fc' if fc else 'conv'}"
+            steps = w64_steps if w == 64 else total
+            pipe = TrainingPipeline(os.path.dirname(shards), batch, w,
+                                    is_extraction_on_the_fly=True, seed=0)
+            it = pipe.batches()
+            t0 = time.perf_counter()
+            bs = [next(it) for _ in range(steps)]
+            stacked = [np.stack([b[i] for b in bs]) for i in range(3)]
+            t_pipe = time.perf_counter() - t0
+            kw = dict(width_target=w, is_fully_connected=fc, coeff_l2=1.0,
+                      coeff_grad=0.0, random_masks=True, total_iters=total)
+            init = lambda d: training.init_state(
+                torch.Generator().manual_seed(0), w, fc, total_iters=total,
+                device=d)
+            gen = torch.Generator().manual_seed(1)
+            reset_all_counts()
+            if w == 64:
+                state = init(dev)
+                sync()
+                t0 = time.perf_counter()
+                state, losses = training.train_chunk(
+                    state, gen, *stacked, mean, (0, 0), **kw)
+                sync()
+                sec = time.perf_counter() - t0
+                if not torch.isfinite(losses).all() or any(
+                        read_all_counts().values()):
+                    raise AssertionError(f"{name}: losses {losses}, kernel "
+                                         f"launches {read_all_counts()}")
+                say(f"train {name} (512 maps), batch {batch}: {steps} steps "
+                    f"in {sec:.3f} s = {sec / steps:.4f} s/step (the first "
+                    f"included); loss {float(losses[0]):.2f} -> "
+                    f"{float(losses[-1]):.2f}; {smi}")
+                continue
+            # The first step on the card against the same step on the CPU
+            # in float64 (same init, batch and masks: the generator's first
+            # draw).  Per leaf, relative to its max |g|: a LeakyReLU input
+            # within rounding of 0 that takes the other slope moves the
+            # gradients of its map's params by up to 0.9 of that unit's
+            # share, hence the 98% and the 5e-2.
+            wa, hl = training.draw_masks(torch.Generator().manual_seed(1),
+                                         batch, w)
+            step = lambda params: training.loss_and_grads(
+                params, *bs[0], mean, wa, hl, width_target=w,
+                is_fully_connected=fc, coeff_l2=1.0, coeff_grad=0.0)
+            with training.exact_steps():
+                l_ref, _, g_ref = step(training.tree_map(
+                    torch.Tensor.double, init("cpu").params))
+                l_dev, _, g_dev = step(init(dev).params)
+            loss_err = abs(float(l_dev) - float(l_ref)) / abs(float(l_ref))
+            g_dev = dict(_leaves(g_dev))
+            worst, share = 0.0, 1.0
+            for k, want in _leaves(g_ref):
+                err = ((g_dev[k].cpu().double() - want).abs()
+                       / want.abs().max()).numpy()
+                worst = max(worst, float(err.max()))
+                share = min(share, float(np.mean(err <= 1e-4)))
+            if not (loss_err <= 1e-5 and share >= 0.98 and worst <= 5e-2):
+                raise AssertionError(
+                    f"{name}: first step on {dev} vs float64 on the CPU: "
+                    f"loss {loss_err:.2e} relative, gradients within 1e-4 of "
+                    f"max |g| in {share:.4f} of a leaf, worst {worst:.2e}")
+            state = init(dev)
+            sync()
+            t0 = time.perf_counter()
+            state, l1 = training.train_chunk(
+                state, gen, *(a[:chunk] for a in stacked), mean, (0, 0),
+                **kw)
+            sync()
+            t1 = time.perf_counter()
+            ckpt = training.save_checkpoint(state, os.path.join(tmp, name),
+                                            gen)
+            t2 = time.perf_counter()
+            state, l2 = training.train_chunk(
+                state, gen, *(a[chunk:] for a in stacked), mean, (0, 0),
+                **kw)
+            sync()
+            t3 = time.perf_counter()
+            gen_r = torch.Generator()
+            resumed = training.restore_checkpoint(ckpt, w, device=dev,
+                                                  generator=gen_r)
+            t4 = time.perf_counter()
+            resumed, l2r = training.train_chunk(
+                resumed, gen_r, *(a[chunk:] for a in stacked), mean, (0, 0),
+                **kw)
+            sync()
+            counts = read_all_counts()
+            same = torch.equal(l2, l2r) and all(
+                torch.equal(x, y) for tree in (
+                    lambda s: s.params, lambda s: s.opt_state[0].mu,
+                    lambda s: s.opt_state[0].nu)
+                for (_, x), (_, y) in zip(sorted(_leaves(tree(state))),
+                                          sorted(_leaves(tree(resumed)))))
+            losses = torch.cat([l1, l2]).cpu().numpy()
+            if not same or any(counts.values()):
+                raise AssertionError(f"{name}: resumed run differs from the "
+                                     f"uninterrupted one ({same}) or kernel "
+                                     f"launches {counts}")
+            if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+                    and float(l1[0]) == float(l_dev)):
+                raise AssertionError(f"{name}: losses {losses}")
+            say(f"train {name}, batch {batch}, random masks, LR boundaries "
+                f"at {total // 2}, {3 * total // 4}, {7 * total // 8}: "
+                f"pipeline {t_pipe:.3f} s for {steps} batches; chunk 1 "
+                f"{(t1 - t0) / chunk:.4f} s/step (first step included), "
+                f"chunk 2 {(t3 - t2) / chunk:.4f} s/step; loss at steps 1, "
+                f"{chunk}, {total}: {losses[0]:.3f}, {losses[chunk - 1]:.3f}"
+                f", {losses[-1]:.3f}; checkpoint at {chunk} ({t2 - t1:.3f} s"
+                f" to write, {t4 - t3:.3f} s to restore) resumed: chunk 2 "
+                f"equal bit for bit (params, Adam moments, losses); first "
+                f"step vs float64 on the CPU: loss {loss_err:.2e} relative, "
+                f"gradients within 1e-4 of a leaf's max |g| in at least "
+                f"{share:.4f} of its entries, worst {worst:.2e}; no kernel "
+                f"launched; {smi}")
+            path = training.save_checkpoint(state, os.path.join(tmp, name))
+            npz = os.path.join(tmp, "frozen", f"pnn_w{w}.npz")
+            export_pnn.freeze_checkpoint(path, npz)
+            frozen[w] = zoo.load_frozen_params(npz)
+
+        # Serve: the frozen models' forward through kernels 4 and 5, on
+        # contexts of the shard with the left mask at w.
+        calls = []
+        orig_fc, orig_fm = fc_forward.fc_forward, merger.merger_forward
+
+        def keep_fc(x, weights, biases, impl="kernel"):
+            calls.append(("fc", x.clone(), weights, biases, False))
+            return orig_fc(x, weights, biases, impl=impl)
+
+        def keep_fm(x, w_, b, act=False, impl="kernel"):
+            calls.append(("fmerger", x.clone(), w_, b, act))
+            return orig_fm(x, w_, b, act=act, impl=impl)
+
+        for w, (params, fc) in frozen.items():
+            a, l, t = next(TrainingPipeline(
+                os.path.dirname(shards), n_contexts, w,
+                is_extraction_on_the_fly=True, seed=1).batches())
+            pre = masking.preprocess_context_portions_targets(
+                a, l, t, mean, (0, w), fc)
+            inputs = pre[0] if fc else (pre[0], pre[1])
+            tparams = zoo.params_from_numpy(params, dev)
+            calls.clear()
+            reset_all_counts()
+            fc_forward.fc_forward, merger.merger_forward = keep_fc, keep_fm
+            sync()
+            t0 = time.perf_counter()
+            try:
+                pred = zoo.predict_by_batch(tparams, inputs, w, fc)
+            finally:
+                fc_forward.fc_forward, merger.merger_forward = (orig_fc,
+                                                                orig_fm)
+            sec = time.perf_counter() - t0
+            counts = read_all_counts()
+            want = {"fc_forward": 4 if fc else 0, "merger": 0 if fc else 1}
+            if on_card and any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"w{w} forward: launches {counts}")
+            errs = []
+            for op, x, ws, bs_, act in calls:
+                if op == "fc":
+                    call = lambda impl: orig_fc(x, ws, bs_, impl=impl)
+                else:
+                    call = lambda impl: orig_fm(x, ws, bs_, act=act,
+                                                impl=impl)
+                errs.append(check_close(call("kernel"), call("plain"),
+                                        1e-4 if op == "fc" else 1e-5,
+                                        f"trained w{w} {op}"))
+            with torch.no_grad():
+                x = (torch.from_numpy(inputs).to(dev) if fc else tuple(
+                    torch.from_numpy(v).to(dev) for v in inputs))
+                plain = pnn.forward_train(tparams, x, w, fc)
+            err = check_close(torch.from_numpy(pred), plain.cpu(), 1e-4,
+                              f"trained w{w} forward")
+            if not np.all(np.isfinite(pred)) or pred.shape != (
+                    n_contexts, w, w, 1):
+                raise AssertionError(f"w{w} forward: {pred.shape}")
+            say(f"trained w{w} frozen and reloaded: predict_by_batch on "
+                f"{n_contexts} contexts {sec:.4f} s, kernel launches "
+                f"{counts}, each call against its plain version within "
+                f"{max(errs):.2e} of max |plain|, the whole forward within "
+                f"{err:.2e} of the plain chain")
+
+        # Quantize the trained models and encode with them.
+        reset_all_counts()
+        t0 = time.perf_counter()
+        trained = nn_intra.PnnBundle(
+            None, mean, params={w: p for w, (p, _) in frozen.items()}).quantize(
+            device=dev)
+        sync()
+        t_q = time.perf_counter() - t0
+        q_counts = read_all_counts()
+        if on_card and not (q_counts["fc_forward"] and q_counts["merger"]):
+            raise AssertionError(f"quantize: launches {q_counts}")
+        rest = zoo.load_quantized_bundle(MANIFEST, mean, use_pair=False,
+                                         widths=(4, 32))
+        bundle = nn_intra.PnnBundle({**rest.quantized, **trained.quantized},
+                                    mean)
+        frame = golden_frames()["natural128"]
+        reset_all_counts()
+        t0 = time.perf_counter()
+        res = wavefront2.encode_frame_wavefront2(
+            frame, QP, policy="switch", pnn=bundle, rate_evolve=True,
+            device=dev)
+        t_enc = time.perf_counter() - t0
+        e_counts = read_all_counts()
+        if on_card and not (e_counts["unit_trial"]
+                            and e_counts["merger_int"]):
+            raise AssertionError(f"switch encode: launches {e_counts}")
+        dec = decoder.decode_frame(res.bitstream, pnn=bundle, device=dev)
+        if not np.array_equal(dec.reconstruction, res.reconstruction):
+            raise AssertionError("switch encode with the trained models: "
+                                 "decode != the encoder's reconstruction")
+        kinds = {w: str(np.asarray(q["kind"]))
+                 for w, q in sorted(bundle.quantized.items())}
+        say(f"trained w8 FC and w16 conv quantized in {t_q:.3f} s (kernel "
+            f"launches {q_counts}); 128x128 switch encode with them (w4, "
+            f"w32 frozen; kinds {kinds}): {t_enc:.3f} s, {res.num_bits} bits,"
+            f" {pnn_pus(res.ctu_trees, 'switch', [4, 8, 16, 32])} PNN-coded "
+            f"PUs, kernel launches {e_counts}; the port's decoder gives the "
+            f"reconstruction back")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
 
 
 def hm_decode_420(stream, h, w, tmp):

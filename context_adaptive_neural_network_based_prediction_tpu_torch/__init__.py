@@ -14,7 +14,9 @@ and the quantized PNN's integer merger as hand-written CUDA kernels
 (`ops/csrc/unit_trial.cu`, `merger_int.cu`); and the float PNN prediction
 path `evaluation.prediction_comparison.compare_on_channels`, with the FC
 layers and the float merger as CUDA kernels (`ops/csrc/fc_forward.cu`,
-`merger.cu`).  Entry points take a `device` argument that defaults to
+`merger.cu`); and PNN training (`models.training`, `data.pipeline`,
+`cli.train_pnn` / `export_pnn` / `create_training_set`) with IPFCN-S
+(`models.ipfcn`).  Entry points take a `device` argument that defaults to
 "cuda"; the CPU runs only the plain PyTorch versions.
 """
 

@@ -8,8 +8,9 @@ the 35 HEVC modes, and writes a CSV.
     python -m context_adaptive_neural_network_based_prediction_tpu_torch.cli.compare_prediction \\
         8 --images 'kodak/*.png' --checkpoint artifacts/frozen/pnn_w8_fc_single.npz
 
-`--device cpu` runs the plain PyTorch versions instead of the kernels.
-IPFCN-S is not ported yet.
+`--device cpu` runs the plain PyTorch versions instead of the kernels;
+`--ipfcn-caffemodel` adds the IPFCN-S baseline's PSNR (its caffemodel read
+without pycaffe).
 """
 
 from __future__ import annotations
@@ -21,19 +22,12 @@ import numpy as np
 
 from ..evaluation import prediction_comparison as pc
 from ..models import importer
-from ..utils import color, images
-
-
-def int_strictly_positive(string: str) -> int:
-    value = int(string)
-    if value <= 0:
-        raise argparse.ArgumentTypeError(f"{value} is not strictly positive.")
-    return value
+from ..utils import color, images, parsing
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("width_target", type=int_strictly_positive)
+    p.add_argument("width_target", type=parsing.int_strictly_positive)
     p.add_argument("--images", required=True,
                    help="glob of test RGB images (e.g. 'kodak/*.png')")
     p.add_argument("--checkpoint", required=True,
@@ -43,6 +37,8 @@ def main(argv=None):
     p.add_argument("--crop", type=int, default=512)
     p.add_argument("--output",
                    default="results/checking_predictions/table.csv")
+    p.add_argument("--ipfcn-caffemodel",
+                   help="optional IPFCN-S .caffemodel (read without pycaffe)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions)")
@@ -69,9 +65,16 @@ def main(argv=None):
         params = importer.import_tf_checkpoint(args.checkpoint)
     is_fc = "fully_connected" in params
 
+    ipfcn_params = None
+    if args.ipfcn_caffemodel:
+        from ..models import ipfcn
+
+        ipfcn_params = ipfcn.import_caffemodel(args.ipfcn_caffemodel)
+
     rows = pc.compare_on_channels(
         channels, args.width_target, params, is_fc, args.mean,
-        nb_positions_per_image=args.positions_per_image, device=args.device)
+        nb_positions_per_image=args.positions_per_image,
+        ipfcn_params=ipfcn_params, device=args.device)
     pc.write_csv(rows, args.output)
     for r in rows:
         print(f"masks ({r.width_mask_above},{r.height_mask_left}): "

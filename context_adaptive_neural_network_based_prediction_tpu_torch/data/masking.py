@@ -3,7 +3,8 @@ the host).
 
 The port's copy of the JAX package's `data/masking.py`
 (`check_mask_sizes` :31, `mask_portions` :37,
-`preprocess_context_portions_targets` :59), numpy only:
+`preprocess_context_portions_targets` :59, `flatten_portions` :86), numpy
+only:
 
 * preprocess = float32(x) - mean_training;
 * the rightmost `width_mask_above` columns of the above portion and the
@@ -58,7 +59,6 @@ def preprocess_context_portions_targets(portions_above_uint8,
     Returns (flattened_contexts (N, 5w^2), targets (N, w, w, 1)) if FC,
     else (above (N, w, 3w, 1), left (N, 2w, w, 1), targets (N, w, w, 1)),
     all float32."""
-    nb_targets = targets_uint8.shape[0]
     width_target = targets_uint8.shape[1]
     width_mask_above, height_mask_left = tuple_width_height_masks
     if isinstance(width_mask_above, int) and isinstance(height_mask_left,
@@ -71,7 +71,13 @@ def preprocess_context_portions_targets(portions_above_uint8,
                                 height_mask_left)
     targets = targets_uint8.astype(np.float32) - mean_training
     if is_fully_connected:
-        flat = np.concatenate((above.reshape(nb_targets, -1),
-                               left.reshape(nb_targets, -1)), axis=1)
-        return flat, targets
+        return flatten_portions(above, left), targets
     return above, left, targets
+
+
+def flatten_portions(portions_above, portions_left):
+    """Concatenates batched (N, w, 3w, 1) / (N, 2w, w, 1) portions into
+    (N, 5w^2) vectors, above first."""
+    n = portions_above.shape[0]
+    return np.concatenate((portions_above.reshape(n, -1),
+                           portions_left.reshape(n, -1)), axis=1)

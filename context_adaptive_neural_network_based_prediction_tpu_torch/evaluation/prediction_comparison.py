@@ -9,11 +9,12 @@ random block positions, and for each validation-mask configuration
   (`zoo.predict_by_batch`, on the card through the FC and merger kernels);
 * predict it with the best of the 35 HEVC modes (max-PSNR oracle sweep over
   the unmasked causal L, `intra.predict_best_mode` on the device);
-* report the mean prediction PSNR and the PNN's win frequency.
+* report the mean prediction PSNR and the PNN's win frequency;
+* with `ipfcn_params`, also the mean PSNR of the IPFCN-S baseline
+  (`models/ipfcn.py`) on the same targets, from its 8-line groups.
 
 Extraction, masking, the pixel rounding and the PSNRs run on the host in
-numpy, as in the JAX package.  IPFCN-S is not ported yet: a non-None
-`ipfcn_params` raises.
+numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -98,6 +99,22 @@ def hevc_best_mode_predictions(channel_uint8: np.ndarray, width_target: int,
             best_modes.cpu().numpy())
 
 
+def ipfcn_groups(channel_uint8: np.ndarray, width_target: int,
+                 rows: np.ndarray, cols: np.ndarray):
+    """IPFCN-S's (above, left) line groups of each position: the 8-wide
+    band hugging the target, origin (target row - 8, target col - 8),
+    clamped at the channel's top and left."""
+    from ..models import ipfcn
+
+    w = width_target
+    out = []
+    for r, c in zip(rows, cols):
+        rr, cc = max(int(r) + w - 8, 0), max(int(c) + w - 8, 0)
+        out.append(ipfcn.extract_pair_groups_lines_from_channel(
+            channel_uint8, w, rr, cc))
+    return out
+
+
 def compare_on_channels(channels_uint8: np.ndarray, width_target: int,
                         params: dict, is_fully_connected: bool,
                         mean_training: float, *,
@@ -108,18 +125,18 @@ def compare_on_channels(channels_uint8: np.ndarray, width_target: int,
     """Runs the comparison on `device`; returns [ComparisonRow] (one per
     mask configuration).  `params` is the nested float param dict of numpy
     arrays (`importer.load_npz_params`, `zoo.load_frozen_params`), carried
-    onto `device` in float32."""
-    if ipfcn_params is not None:
-        raise NotImplementedError("IPFCN-S is not ported to the PyTorch "
-                                  "port yet; pass ipfcn_params=None")
+    onto `device` in float32; `ipfcn_params` (`ipfcn.import_caffemodel`,
+    `ipfcn.load_npz_params`) adds IPFCN-S's mean PSNR to every row."""
     tparams = zoo.params_from_numpy(params, device)
     rng = np.random.default_rng(seed)
     w = width_target
-    aboves, lefts, targets, hevc_preds = [], [], [], []
+    aboves, lefts, targets, hevc_preds, groups = [], [], [], [], []
     for i in range(channels_uint8.shape[0]):
         ch = channels_uint8[i]
         rows, cols = draw_positions(rng, ch.shape[0], ch.shape[1], w,
                                     nb_positions_per_image)
+        if ipfcn_params is not None:
+            groups += ipfcn_groups(ch, w, rows, cols)
         a, l, t = extraction.extract_context_portions_targets_from_channel(
             ch, w, rows, cols)
         aboves.append(a)
@@ -133,6 +150,16 @@ def compare_on_channels(channels_uint8: np.ndarray, width_target: int,
     target = np.concatenate(targets)
     psnr_hevc = metrics.compute_psnr_batch(target[:, :, :, 0],
                                            np.concatenate(hevc_preds))
+
+    ipfcn_psnr_mean = None
+    if ipfcn_params is not None:
+        from ..models import ipfcn
+
+        preds_ip = ipfcn.predict_uint8(
+            ipfcn_params, np.stack([g[0] for g in groups]),
+            np.stack([g[1] for g in groups]), w, device=device)
+        ipfcn_psnr_mean = float(np.mean(
+            metrics.compute_psnr_batch(target[:, :, :, 0], preds_ip)))
 
     rows_out = []
     for mask_spec in val_masks:
@@ -153,7 +180,7 @@ def compare_on_channels(channels_uint8: np.ndarray, width_target: int,
             height_mask_left=hl,
             mean_psnr_pnn=float(psnr_pnn.mean()),
             mean_psnr_hevc_best=float(psnr_hevc.mean()),
-            mean_psnr_ipfcn=None,
+            mean_psnr_ipfcn=ipfcn_psnr_mean,
             pnn_win_frequency=float((psnr_pnn > psnr_hevc).mean()),
         ))
     return rows_out

@@ -13,8 +13,12 @@ reads a bundle kept in one file (the test bundle of
 Float models: `load_frozen_params` (`models/zoo.py:60`) reads a frozen
 float `.npz` into the JAX package's nested dict of numpy arrays,
 `params_from_numpy` carries such a dict onto a device in the port's
-layouts, and `predict_by_batch` (`models/zoo.py:40`) runs `pnn.forward`
-over any number of examples in chunks of 1024, returning numpy.
+layouts, `params_to_numpy` is its exact inverse (checkpoints and exports
+are written in the JAX layout, so either package reads them), and
+`predict_by_batch` (`models/zoo.py:40`) runs `pnn.forward` over any
+number of examples in chunks of 1024, returning numpy.
+`model_directory` (`models/zoo.py:22`) is the trained models' directory
+convention.
 """
 
 from __future__ import annotations
@@ -25,6 +29,25 @@ import numpy as np
 import torch
 
 from . import pnn, pnn_q
+
+
+def model_directory(root: str, width_target: int, is_fully_connected: bool,
+                    is_pair: bool, channel: str, coeff_l2: float,
+                    coeff_grad: float, tuple_width_height_masks_tr) -> str:
+    """<root>/width_target_<w>/<fully_connected|convolutional>/<single|pair>/
+    <channel>/<coeff_l2>_<coeff_grad>/masks_tr_<wa_hl | random>/."""
+    arch = "fully_connected" if is_fully_connected else "convolutional"
+    pair = "pair" if is_pair else "single"
+
+    def fmt(c):
+        return f"{c:g}".replace(".", "_")
+    coeffs = f"{fmt(coeff_l2)}_{fmt(coeff_grad)}"
+    if tuple_width_height_masks_tr:
+        masks = "masks_tr_{}_{}".format(*tuple_width_height_masks_tr)
+    else:
+        masks = "masks_tr_random"
+    return os.path.join(root, f"width_target_{width_target}", arch, pair,
+                        channel, coeffs, masks)
 
 
 def parse_manifest(path: str) -> dict:
@@ -152,8 +175,10 @@ def _leaf_to_tensor(path, a, device, weight_dtype):
         a = a.transpose(3, 2, 0, 1)
     elif name.startswith("weights_"):
         dtype = weight_dtype
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                        dtype=dtype)
+    # A copy: training updates params in place, which must not write
+    # into the caller's arrays.
+    return torch.tensor(np.ascontiguousarray(a)).to(device=device,
+                                                    dtype=dtype)
 
 
 def params_from_numpy(params: dict, device="cuda",
@@ -172,6 +197,31 @@ def params_from_numpy(params: dict, device="cuda",
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return _leaf_to_tensor(path, node, dev, weight_dtype)
+
+    return walk(params, ())
+
+
+def _leaf_to_numpy(path, t):
+    """The inverse of `_leaf_to_tensor`: one parameter tensor back in the
+    JAX layout, numpy float32 (bfloat16 widens exactly)."""
+    a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    name, scope = path[-1], path[-2] if len(path) > 1 else ""
+    if scope == "channelwise_fully_connected_merger":
+        a = a.transpose(2, 0, 1) if name == "weights" else a.T
+    elif name == "weights" and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    return np.ascontiguousarray(a)
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Tensors in the port's layouts (`params_from_numpy`'s output, or
+    trained params) -> the JAX package's nested dict of numpy float32
+    arrays: HWIO conv weights, HWOI transpose-conv weights, merger (M, P,
+    O) weights and (M, O) biases."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return _leaf_to_numpy(path, node)
 
     return walk(params, ())
 

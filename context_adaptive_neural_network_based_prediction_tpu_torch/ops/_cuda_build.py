@@ -33,6 +33,8 @@ import os
 import shutil
 import threading
 
+import torch
+
 from .. import _build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -117,6 +119,16 @@ def check_tensor(name, t, shape, dtypes, device):
         raise ValueError(f"{name}: want contiguous {dtypes} {tuple(shape)} "
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def refuse_autograd(name, *tensors):
+    """Raises RuntimeError when grad mode is on and one of `tensors`
+    requires grad: a kernel's output has no `grad_fn`, so training through
+    its wrapper would silently train nothing on the card."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; differentiate its plain "
+            f"version (pnn.forward_train) or run under torch.no_grad()")
 
 
 def error_string(name: str, err: int) -> str:

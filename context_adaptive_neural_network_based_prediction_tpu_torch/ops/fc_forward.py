@@ -15,7 +15,9 @@ computes.
   kernel of `csrc/fc_forward.cu` once per layer (a failed build or launch
   raises), or the plain version when `impl="plain"` (for comparing).
   `launches[(K, D)]` counts the layer calls that launched the kernel, per
-  layer shape.
+  layer shape.  The kernel has no backward, so `fc_forward` raises on every
+  device when grad mode is on and x, a weight or a bias requires grad:
+  training differentiates `fc_plain` (`pnn.forward_train`).
 
 The kernel runs on the tensor cores in split TF32 (three TF32 products per
 float32 product, two for bfloat16 weights; see the source).  It takes each
@@ -59,13 +61,14 @@ def reset_launch_counts():
 
 
 def _layer_plain(x, w, b, act: bool):
-    h = torch.matmul(x, w.to(torch.float32)) + b
+    h = torch.matmul(x, w.to(x.dtype)) + b
     return torch.maximum(SLOPE * h, h) if act else h
 
 
 def fc_plain(x, weights, biases):
     """x (N, K0) float32, four weights (K_i, D_i) float32 or bfloat16 and
-    biases (D_i,) float32 -> (N, D_3) float32."""
+    biases (D_i,) float32 -> (N, D_3) float32.  All in float64 computes in
+    float64 (a reference for training's gradients)."""
     for i, (w, b) in enumerate(zip(weights, biases)):
         x = _layer_plain(x, w, b, i < len(weights) - 1)
     return x
@@ -163,6 +166,7 @@ def fc_forward(x, weights, biases, impl: str = "kernel"):
     bfloat16, biases (D_i,) float32 -> (N, D_3) float32."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    _cuda_build.refuse_autograd("fc_forward", x, *weights, *biases)
     if impl == "plain" or x.device.type == "cpu":
         return fc_plain(x, weights, biases)
     if x.device.type != "cuda":

@@ -16,7 +16,10 @@ widths 4 and 8 (refconv), 16, 32, 64.
 * `merger_forward`: CPU tensors take the plain version; CUDA tensors launch
   the kernel of `csrc/merger.cu` (a failed build or launch raises), or the
   plain version when `impl="plain"` (for comparing).  `launches[M]` counts
-  the kernel's launches per map count.
+  the kernel's launches per map count.  The kernel has no backward, so
+  `merger_forward` raises on every device when grad mode is on and x, w or
+  b requires grad: training differentiates `merger_plain`
+  (`pnn.forward_train`).
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ def reset_launch_counts():
 
 def merger_plain(x, w, b, act: bool = False):
     """x (N, P, M) float32, w (P, O, M) float32 or bfloat16, b (O, M)
-    float32 -> (N, O, M) float32."""
-    h = torch.einsum("npm,pom->nom", x, w.to(torch.float32)) + b
+    float32 -> (N, O, M) float32.  All in float64 computes in float64 (a
+    reference for training's gradients)."""
+    h = torch.einsum("npm,pom->nom", x, w.to(x.dtype)) + b
     return torch.maximum(SLOPE * h, h) if act else h
 
 
@@ -75,6 +79,7 @@ def merger_forward(x, w, b, act: bool = False, impl: str = "kernel"):
     -> (N, O, M) float32."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    _cuda_build.refuse_autograd("merger_forward", x, w, b)
     if impl == "plain" or x.device.type == "cpu":
         return merger_plain(x, w, b, act)
     if x.device.type != "cuda":

@@ -15,7 +15,10 @@ chunks, two calls on the same inputs giving the same bits; and the float
 prediction path against `tests/golden_torch/float_pnn.*`.  Batched
 plans: the trial and the merger at 124 and 496 slots, 2-frame batches
 and the streaming encoder equal to single-frame encodes, and the port's
-decoder on the card.
+decoder on the card.  Training: a step's loss and gradients on the card
+against the CPU, a resumed run equal to an uninterrupted one, the TF32 and
+cuDNN flags given back, and the FC kernel's forward after a step on the
+updated weights.
 Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -726,3 +729,150 @@ def test_host_encode_on_card_matches_jax_digests(dev, policy, qp):
                                      device=dev, use_native="always")
     assert hd.hash_ok
     np.testing.assert_array_equal(hd.reconstruction, res_hm.reconstruction)
+
+
+# ------------------------------------------------------------- training ----
+
+def train_batch(w, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, w, 3 * w, 1), dtype=np.uint8),
+            rng.integers(0, 256, (n, 2 * w, w, 1), dtype=np.uint8),
+            rng.integers(0, 256, (n, w, w, 1), dtype=np.uint8))
+
+
+TRAIN_KW = dict(coeff_l2=1.0, coeff_grad=0.5, random_masks=True,
+                total_iters=40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,fc", [(8, True), (16, False)],
+                         ids=["fc_w8", "conv_w16"])
+def test_train_step_on_card_matches_cpu(dev, w, fc):
+    """One training step's loss and gradients on the card against the same
+    step on the CPU in float64 (same init, batch and masks): loss within
+    1e-5 relative; per leaf, 98% of the gradient entries within 1e-4 of
+    the leaf's max |g| and all within 5e-2 (a LeakyReLU input within
+    rounding of 0 may take the other slope).  The reference is float64:
+    float32 gradients of sums over many positions cancel, and the CPU's
+    own float32 ones are up to a few 1e-2 of a leaf's max off."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import training
+
+    b = train_batch(w, 32, 1)
+    wa, hl = training.draw_masks(torch.Generator().manual_seed(1), 32, w)
+    out = {}
+    for d, cast in (("cpu", torch.Tensor.double), (dev, None)):
+        params = training.init_state(torch.Generator().manual_seed(0), w,
+                                     fc, device=d).params
+        if cast is not None:
+            params = training.tree_map(cast, params)
+        with training.exact_steps():
+            out[str(d)] = training.loss_and_grads(
+                params, *b, 86.8568, wa, hl, width_target=w,
+                is_fully_connected=fc, coeff_l2=1.0, coeff_grad=0.5)
+    (lc, _, gc), (lg, _, gg) = out["cpu"], out[str(dev)]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    gg = dict(_leaves(gg))
+    for k, want in _leaves(gc):
+        err = ((gg[k].cpu().double() - want).abs() / want.abs().max()).numpy()
+        assert np.mean(err <= 1e-4) >= 0.98 and err.max() <= 5e-2, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,fc", [(8, True), (16, False)],
+                         ids=["fc_w8", "conv_w16"])
+def test_resume_on_card_equals_uninterrupted_run(dev, w, fc, tmp_path):
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import training
+
+    kw = dict(TRAIN_KW, width_target=w, is_fully_connected=fc)
+    bs = [train_batch(w, 32, s) for s in range(6)]
+    a, l, t = (np.stack([b[i] for b in bs]) for i in range(3))
+    gen = torch.Generator().manual_seed(1)
+    state = training.init_state(torch.Generator().manual_seed(0), w, fc,
+                                device=dev)
+    state, _ = training.train_chunk(state, gen, a[:3], l[:3], t[:3],
+                                    86.8568, (0, 0), **kw)
+    path = training.save_checkpoint(state, str(tmp_path), gen)
+    whole, lw = training.train_chunk(state, gen, a[3:], l[3:], t[3:],
+                                     86.8568, (0, 0), **kw)
+    gen2 = torch.Generator()
+    resumed = training.restore_checkpoint(path, w, device=dev,
+                                          generator=gen2)
+    resumed, lr = training.train_chunk(resumed, gen2, a[3:], l[3:], t[3:],
+                                       86.8568, (0, 0), **kw)
+    assert torch.equal(lw, lr)
+    x = training.state_to_numpy(whole)
+    y = training.state_to_numpy(resumed)
+    for tree in (lambda s: s["params"], lambda s: s["opt_state"][0].mu,
+                 lambda s: s["opt_state"][0].nu):
+        want = dict(_leaves(tree(x)))
+        got = dict(_leaves(tree(y)))
+        assert got.keys() == want.keys()
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_gives_the_flags_back(dev):
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import training
+
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32,
+                     torch.backends.cudnn.enabled)
+    old = flags()
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.enabled) = (True, True, True)
+        state = training.init_state(torch.Generator().manual_seed(0), 16,
+                                    False, device=dev)
+        kw = dict(width_target=16, is_fully_connected=False,
+                  random_masks=False)
+        state, loss, _ = training.train_step(
+            state, None, *train_batch(16, 8, 2), 86.8568, (0, 0),
+            coeff_l2=1.0, coeff_grad=0.0, **kw)
+        assert torch.isfinite(loss) and flags() == (True, True, True)
+        with pytest.raises(ValueError):
+            training.train_step(state, None, *train_batch(16, 8, 3),
+                                86.8568, (0, 0), coeff_l2=0.0,
+                                coeff_grad=0.0, **kw)
+        assert flags() == (True, True, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.enabled) = old
+
+
+@pytest.mark.cuda
+def test_kernel_forward_after_a_training_step_sees_the_new_weights(dev):
+    """The FC kernel's prepared weights (`prepare_weight`, keyed by the
+    tensor and its `_version`) follow the in-place Adam update."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import pnn, training
+
+    state = training.init_state(torch.Generator().manual_seed(0), 8, True,
+                                device=dev)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 30, (64, 320)).astype(np.float32)).to(dev)
+    fc_forward.reset_launch_counts()
+    before = pnn.forward(state.params, x, 8, True)
+    state, _, _ = training.train_step(
+        state, None, *train_batch(8, 32, 4), 86.8568, (0, 0),
+        width_target=8, is_fully_connected=True, random_masks=False,
+        coeff_l2=1.0, coeff_grad=0.0)
+    after = pnn.forward(state.params, x, 8, True)
+    assert sum(fc_forward.launches.values()) == 8
+    with torch.no_grad():
+        want = pnn.forward_train(state.params, x, 8, True)
+    assert not torch.equal(before, after)
+    assert rel_err(after, want) <= 1e-4

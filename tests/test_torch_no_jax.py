@@ -1,9 +1,10 @@
-"""The port and `chip_smoke.py` import nothing of JAX and nothing of the
+"""The port and `chip_smoke.py` import nothing of JAX, of optax and of the
 JAX package: a scan of every Python file of the port package and of
 `chip_smoke.py` for import statements (and `import_module` / `__import__`
-calls) that name `jax`, `jaxlib` or the JAX package, and fresh processes
-that run the CTB-64 Annex-B path and the loop-filtered decode, the v1 and
-quantize paths, and the host RDO codec, and load neither.  Each child
+calls) that name `jax`, `jaxlib`, `optax` or the JAX package, and fresh
+processes that run the CTB-64 Annex-B path and the loop-filtered decode,
+the v1 and quantize paths, the host RDO codec, and training (steps,
+checkpoints, a JAX-written checkpoint, export), and load none of them.  Each child
 runs torch on one thread, as the test files cap their own."""
 
 import glob
@@ -18,7 +19,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "context_adaptive_neural_network_based_prediction_tpu_torch"
 REF = "context_adaptive_neural_network_based_prediction_tpu"
-FORBIDDEN = rf"(jax|jaxlib|{REF})(?![\w])"
+FORBIDDEN = rf"(jax|jaxlib|optax|{REF})(?![\w])"
 PATTERNS = (
     re.compile(rf"^\s*import\s+([\w.]+\s*(as\s+\w+)?\s*,\s*)*{FORBIDDEN}",
                re.M),
@@ -48,6 +49,7 @@ def test_no_jax_import(path):
 
 def test_the_scan_finds_what_it_looks_for():
     for bad in ("import jax\n", "import numpy as np, jax.numpy as jnp\n",
+                "import optax\n", "from optax._src import transform\n",
                 "    from jax import lax\n", f"from {REF}.ops import intra\n",
                 f"import {REF}\n", "importlib.import_module('jax')\n",
                 f"__import__(\"{REF}.codec\")\n"):
@@ -190,3 +192,72 @@ def test_host_codec_path_runs_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == dict(bad=[], same=True, ok=True, rate=True)
+
+
+def test_the_scan_covers_the_training_slice():
+    names = {os.path.relpath(f, os.path.join(REPO, PORT)) for f in FILES}
+    for mod in ("models/training.py", "models/losses.py", "models/ipfcn.py",
+                "models/visualization.py", "data/datasets.py",
+                "data/pipeline.py", "cli/train_pnn.py", "cli/export_pnn.py",
+                "cli/create_training_set.py", "utils/paths.py",
+                "utils/parsing.py", "utils/images.py"):
+        assert mod in names, mod
+
+
+def test_training_path_runs_without_jax(tmp_path):
+    """A fresh process trains a few steps, saves and restores its own
+    checkpoint, restores a checkpoint the JAX package wrote (here, in the
+    parent) and steps it, exports both and reloads them, and has loaded
+    no module of JAX, of optax or of the JAX package."""
+    import jax
+
+    from context_adaptive_neural_network_based_prediction_tpu.models import (
+        training as j_training)
+
+    j_path = j_training.save_checkpoint(
+        j_training.init_state(jax.random.PRNGKey(0), 4, True),
+        str(tmp_path / "jax"))
+    code = (
+        "import json, sys\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        f"from {PORT}.models import training, zoo\n"
+        f"from {PORT}.cli import export_pnn\n"
+        "rng = np.random.default_rng(0)\n"
+        "b = lambda: (rng.integers(0, 256, (4, 4, 12, 1), dtype=np.uint8),"
+        " rng.integers(0, 256, (4, 8, 4, 1), dtype=np.uint8),"
+        " rng.integers(0, 256, (4, 4, 4, 1), dtype=np.uint8))\n"
+        "kw = dict(width_target=4, is_fully_connected=True, coeff_l2=1.0,"
+        " coeff_grad=0.0, random_masks=True)\n"
+        "g = torch.Generator().manual_seed(1)\n"
+        "s = training.init_state(torch.Generator().manual_seed(0), 4, True,"
+        " device='cpu')\n"
+        "for _ in range(3):\n"
+        "    s, loss, _ = training.train_step(s, g, *b(), 90.0, (0, 0),"
+        " **kw)\n"
+        f"p = training.save_checkpoint(s, {str(tmp_path / 'port')!r}, g)\n"
+        "r = training.restore_checkpoint(p, 4, device='cpu')\n"
+        f"j = training.restore_checkpoint({j_path!r}, 4, device='cpu')\n"
+        "j, jl, _ = training.train_step(j, g, *b(), 90.0, (0, 0), **kw)\n"
+        "out = []\n"
+        f"for ck, npz in ((p, {str(tmp_path / 'p.npz')!r}),"
+        f" ({j_path!r}, {str(tmp_path / 'j.npz')!r})):\n"
+        "    export_pnn.freeze_checkpoint(ck, npz)\n"
+        "    params, fc = zoo.load_frozen_params(npz)\n"
+        "    out.append(list(params['fully_connected']['weights_0'].shape))\n"
+        "same = bool(np.array_equal(zoo.params_to_numpy(r.params)"
+        "['fully_connected']['weights_3'], zoo.params_to_numpy(s.params)"
+        "['fully_connected']['weights_3']))\n"
+        f"ref = '{REF}'\n"
+        "bad = [m for m in sys.modules if m.startswith(('jax', 'optax'))"
+        " or m == ref or m.startswith(ref + '.')]\n"
+        "print(json.dumps(dict(bad=bad, same=same, step=r.step,"
+        " jstep=j.step, finite=bool(np.isfinite(float(loss))"
+        " and np.isfinite(float(jl))), shapes=out)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=child_env(), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == dict(bad=[], same=True, step=3, jstep=1, finite=True,
+                       shapes=[[80, 1200], [80, 1200]])

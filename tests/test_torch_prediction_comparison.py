@@ -228,15 +228,6 @@ def test_compare_on_channels_matches_jax(name):
     assert_rows_close(got, ref, 128)
 
 
-def test_ipfcn_is_not_ported_yet():
-    path = os.path.join(REPO, "artifacts", "frozen",
-                        "pnn_w4_refconv_single.npz")
-    params, is_fc = t_zoo.load_frozen_params(path)
-    with pytest.raises(NotImplementedError, match="IPFCN"):
-        t_pc.compare_on_channels(FRAME[None, :, :, None], 4, params, is_fc,
-                                 MEAN, ipfcn_params={}, device="cpu")
-
-
 def read_csv(path):
     with open(path, newline="") as f:
         return list(csv.reader(f, delimiter=";"))
