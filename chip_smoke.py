@@ -18,9 +18,10 @@ prediction path (Tables I-V,
 frame's luma with the six float singles of the chip copy; and the host
 RDO codec behind the rate-distortion results (`FrameEncoder`, its Annex-B
 output in luma and 4:2:0, the HM-syntax decoder, `compute_rate_psnr`)
-with the whole w4-w64 quantized zoo and the float fallback; and PNN
+with the whole w4-w64 quantized zoo and the float fallback; PNN
 training (`models/training.py`) with checkpoint and resume, its trained
-models frozen, served, quantized and encoded with.  It holds each
+models frozen, served, quantized and encoded with; and the multi-rank
+paths (tiled encoders, sharded training) on 2 ranks sharing the card.  It holds each
 hand-written kernel against its plain PyTorch version.  Phases, each
 printing one line with its seconds:
 
@@ -53,15 +54,17 @@ printing one line with its seconds:
   4  the 1080p regular encode through the kernel path: device and pack
      seconds, PSNR, bits, and trial launches per unit size, which must
      equal the trial calls of the step loop
-  5  the regular encode of the frame's 544x960 crop through the kernel and
+  5  the regular encode of the frame's 288x960 crop through the kernel and
      through the plain trial: reconstruction, grids and stream identical
      (about a quarter of the frame, to keep the smoke inside its time
      limit)
   6  the 1080p switch encode through the kernel path: the same numbers,
      PNNS-coded PUs, trial launches, and merger launches per map count,
      which must equal the PNN calls of the step loop
-  7  the same switch encode through the plain trial and plain merger:
-     identical to phase 6
+  7  the switch encode of the 288x960 crop through the kernel path and
+     through the plain trial and plain merger: identical (the crop keeps
+     the smoke inside its time limit on slow hosts; phase 6 holds the
+     1080p kernel path's launches)
  10  the 1080p regular encode of four distinct frames (the frame, its
      left-right and up-down flips, a 64-column roll) as one batch of 4:
      each frame identical to its own b = 1 kernel-path encode; the device
@@ -87,7 +90,7 @@ printing one line with its seconds:
      quadrants); the port's decoder gives the reconstruction back from
      the stream
  15  `encode_frame_wavefront2_hm`, regular, loop filters on, at CTB 64 on
-     the same 1024x1920 frame and at CTB 32 on phase 5's 544x960 crop
+     the same 1024x1920 frame and at CTB 32 on phase 5's 288x960 crop
      with rate evolution on (phase 4's configuration; the mode map must be
      phase 5's): device, deblock, SAO-estimate, SAO-apply and HM-serialise
      seconds; stock HM (`artifacts/hm_bin/TAppDecoderStatic -b ... -o
@@ -168,6 +171,21 @@ printing one line with its seconds:
      a switch encode of the 128x128 natural frame with the quantized
      trained w8 FC and w16 conv (w4, w32 from artifacts/frozen; trial and
      integer merger launches counted), decoded back by the port's decoder
+ 20  (runs before 8) the multi-rank paths: 2 ranks of one Gloo group on
+     the card (`parallel/mesh.spawn_ranks`; they load phase 1's libraries
+     and build none) run the tiled quadtree halo encode of the frame's top
+     1024x1920 (regular, rate evolution off) and of a 128x256 crop under
+     switch with the frozen singles, the v1 tiled halo and tiled encodes
+     at block size 16, and 3-step sharded training chunks at batch 100
+     (w8 FC at dp = 2, w16 conv at tp = 2) in float32, with the first
+     step alone, and in float64; this process runs the single-device
+     references first, alone on the card.  Every rank's encodes equal
+     one device's (reconstruction, CU trees, mode map, stream), with each
+     rank's trial and merger launches printed; the sharded losses within
+     1e-5 relative, the first step's gradients against float64 as in
+     phase 19, and after the float64 chunks the parameters and both Adam
+     moments within 1e-5 of each leaf's max |value| at every entry; the
+     ranks' and the references' seconds beside nvidia-smi's line
   8  per kernel, on phase-4, phase-6 and phase-9 inputs, and on the batched
      paths' (the trial at 124 slots from phase 10, the merger at N = 124
      from phase 11 and at N = 1 from phase 13's decode), CTB 64's (the
@@ -200,7 +218,8 @@ printing one line with its seconds:
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero.  It imports
 nothing of JAX and starts no process other than the compilers,
-nvidia-smi and HM's decoder (`artifacts/hm_bin/TAppDecoderStatic`).
+nvidia-smi, HM's decoder (`artifacts/hm_bin/TAppDecoderStatic`) and
+phase 20's two ranks, which it joins inside the phase.
 """
 
 from __future__ import annotations
@@ -222,7 +241,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 QP = 32
 H, W = 1056, 1920
-CROP = (544, 960)       # the regular path's plain comparison (phase 5)
+CROP = (288, 960)       # the regular path's plain comparison (phase 5)
 H64 = 1024              # CTB 64 needs rows in whole CTBs: the top 1024
 UNIT_SUBSTAGES = {4: 64, 8: 16, 16: 4, 32: 1}     # trials per step per n
 REPLACES = {
@@ -282,6 +301,9 @@ STEP_SPIN_CYCLES = 20_000_000   # about 10 ms: longer than a step's issue
 TRAIN_SHARD = os.path.join(REPO, "artifacts", "training_set", "luminance",
                            "thread_0", "data_1.npz")
 TRAIN_BATCH, TRAIN_CHUNK, W64_STEPS, TRAIN_CONTEXTS = 100, 25, 5, 1024
+# Phase 20: two ranks sharing the card (Gloo), the switch crop, the v1
+# block size and the sharded chunk's steps.
+RANKS, SWITCH_CROP, V1_BLOCK, SHARD_STEPS = 2, (128, 256), 16, 3
 # The kernel of one trial call, by unit size (profiler names).
 TRIAL_KERNELS = {4: ("trial_small_kernel",), 8: ("trial_small_kernel",),
                  16: ("trial_large_kernel",), 32: ("trial_large_kernel",)}
@@ -942,18 +964,18 @@ def main():
         if launches != want_trials:
             raise AssertionError("kernel launches != trial calls")
 
-    # The regular path's plain comparison runs on the frame's top-left
-    # 544x960 crop (17 x 30 CTBs, about a quarter of the 1080p frame; 528
-    # rows are not whole CTBs), to keep the smoke inside its time limit;
-    # the switch path's runs at 1080p.
-    with Phase("5 544x960 plain"):
+    # The plain comparisons run on the frame's top-left 288x960 crop (9 x
+    # 30 CTBs, about a seventh of the 1080p frame), to keep the smoke
+    # inside its time limit with phase 20 on slow hosts.
+    with Phase(f"5 {CROP[0]}x{CROP[1]} plain"):
         crop = np.ascontiguousarray(frame[:CROP[0], :CROP[1]])
         crop_k = encode(crop, "regular", "kernel")
         crop_p = encode(crop, "regular", "plain")
-        assert_same_encode(crop_k, crop_p, "544x960")
+        assert_same_encode(crop_k, crop_p, f"{CROP[0]}x{CROP[1]}")
         if crop_p[6][0] != {4: 0, 8: 0, 16: 0, 32: 0}:
             raise AssertionError("the plain path launched the trial kernel")
-        say(f"544x960 regular: kernel path device half {crop_k[3]:.3f} s, "
+        say(f"{CROP[0]}x{CROP[1]} regular: kernel path device half "
+            f"{crop_k[3]:.3f} s, "
             f"plain path {crop_p[3]:.3f} s; recon, 11 grids and stream "
             f"identical")
 
@@ -970,13 +992,18 @@ def main():
         if sw_mergers != want_mergers:
             raise AssertionError("switch: merger launches != PNN calls")
 
-    with Phase("7 1080p switch plain"):
-        sw_p = encode(frame, "switch", "plain")
-        assert_same_encode(sw_k, sw_p, "1080p switch")
+    with Phase(f"7 {CROP[0]}x{CROP[1]} switch plain"):
+        sw_ck = encode(crop, "switch", "kernel")
+        sw_p = encode(crop, "switch", "plain")
+        assert_same_encode(sw_ck, sw_p, f"{CROP[0]}x{CROP[1]} switch")
         if sw_p[6][1] or sw_p[6][0] != {4: 0, 8: 0, 16: 0, 32: 0}:
             raise AssertionError("the plain path launched a kernel")
-        say(f"1080p switch plain path: device half {sw_p[3]:.3f} s; recon, "
-            f"11 grids and stream identical to the kernel path")
+        if not sum(sw_ck[6][1].values()):
+            raise AssertionError("the crop's switch kernel path launched "
+                                 "no merger")
+        say(f"{CROP[0]}x{CROP[1]} switch: kernel path device half "
+            f"{sw_ck[3]:.3f} s, plain path {sw_p[3]:.3f} s; recon, 11 grids "
+            f"and stream identical")
 
     # ---- phases 10-13: frame batching, streaming and decoding ----
     frames4 = np.stack([frame, np.ascontiguousarray(frame[:, ::-1]),
@@ -1172,7 +1199,7 @@ def main():
         import deblock, hm_encoder, sao
     with Phase("15 Annex-B + stock HM"), \
             tempfile.TemporaryDirectory() as tmp:
-        # The CTB-32 run is phase 5's 544x960 crop (phase 4's
+        # The CTB-32 run is phase 5's crop (phase 4's
         # configuration), to keep the smoke inside its time.
         for what, fr, ctb, rate_evolve, want_modes in (
                 (f"{H64}x{W} CTB 64", frame64, 64, False, None),
@@ -1560,6 +1587,10 @@ def main():
     # ---- phase 19 (before 8): PNN training end to end ----
     with Phase("19 training"):
         training_phase(dev, smi)
+
+    # ---- phase 20 (before 8): two ranks on the card ----
+    with Phase("20 multi-rank"):
+        multi_rank_phase(dev, smi)
 
     # ---- phase 8: per-kernel numbers at the main paths' shapes ----
     with Phase("8 kernel timing"):
@@ -1974,6 +2005,323 @@ def training_phase(dev, smi, *, batch=TRAIN_BATCH, chunk=TRAIN_CHUNK,
             f"reconstruction back")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tree_digest(trees):
+    """sha256 of the CU trees (splits, PU modes, TU flags and levels): the
+    decided grids of an `EncodeResult`."""
+    h = hashlib.sha256()
+    stack = list(reversed(trees))
+    while stack:
+        nd = stack.pop()
+        h.update(repr((nd.x, nd.y, nd.size, nd.depth, bool(nd.split),
+                       bool(nd.part_nxn))).encode())
+        for pu in nd.pus:
+            h.update(repr((pu.x, pu.y, pu.n, int(pu.mode))).encode())
+            for tu in pu.tus:
+                h.update(repr((tu.x, tu.y, tu.n, tu.cbf)).encode())
+                if tu.coeffs is not None:
+                    h.update(np.asarray(tu.coeffs, np.int32).tobytes())
+        stack.extend(reversed(nd.children))
+    return h.hexdigest()
+
+
+def multi_rank_phase(dev, smi, *, h=H64, w=W, switch_crop=SWITCH_CROP,
+                     batch=TRAIN_BATCH, steps=SHARD_STEPS):
+    """Phase 20, the multi-rank paths on `dev`.  First this process runs
+    the single-device references alone on `dev`; then `RANKS` ranks of one
+    Gloo group on the card (`parallel/mesh.spawn_ranks`, one `spawn`
+    process each; they load the kernels phase 1 built and build none) run,
+    in one group, (a) `encode_frame_tiled_halo_v2`, regular, QP 32, NxN
+    on, rate evolution off, on the frame's top h x w (1024 x 1920: stripes
+    of 16 CTB rows); (b) the same under switch with the frozen singles zoo
+    on the top-left `switch_crop`; (c) the v1 `encode_frame_tiled_halo` at
+    block size 16 on the h x w crop, and `encode_frame_tiled`; (d) the
+    sharded training chunk of `steps` steps at `batch` from the shipped
+    crop shard, w8 FC at dp = 2 and w16 conv at tp = 2: in float32, its
+    first step alone in float32, and in float64.  Checks: (a), (b)
+    reconstruction, CU trees (every decided grid), mode map and stream
+    equal to one device on every rank, each rank's trial launches (a, b)
+    and integer merger launches (b) nonzero on a card; (c) the halo
+    encode's reconstruction and modes equal `encode_frame_wavefront`'s;
+    (d) the float32 losses within 1e-5 relative of the single-device
+    chunk's at every step; the first step's gradients, sharded and
+    single-device, against float64 on `dev` as phase 19 holds them (per
+    leaf 98% within 1e-4 of its max |g|, all within 5e-2); and after the
+    float64 chunks the parameters and both Adam moments within 1e-5 of
+    each leaf's max |value| at every entry (float32's state after
+    `steps` steps is printed, not held: Adam turns float32 gradients
+    summed in another order into update differences past 1e-5).  A
+    rank's failure or the group's timeout fails the phase.  Returns the
+    seconds."""
+    import torch
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch import (
+        _build_dir)
+    from context_adaptive_neural_network_based_prediction_tpu_torch.data \
+        import datasets
+    from context_adaptive_neural_network_based_prediction_tpu_torch.data \
+        .pipeline import TrainingPipeline
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import training, zoo
+    from context_adaptive_neural_network_based_prediction_tpu_torch.parallel \
+        import mesh, sharded_training, tiled, wavefront, wavefront2
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rank_dev = "cuda" if on_card else "cpu"
+    t_phase = time.perf_counter()
+    frame = bench_frame()[:h, :w]
+    sw_frame = bench_frame()[:switch_crop[0], :switch_crop[1]]
+    zoo_s = nn_bundles()["frozen_singles"]
+    mean = datasets.load_mean_training(MEAN_PKL)
+    tmp = tempfile.mkdtemp(prefix="ranks_")
+    try:
+        shards = os.path.join(tmp, "shards", "thread_0")
+        os.makedirs(shards)
+        os.symlink(TRAIN_SHARD, os.path.join(shards, "data_1.npz"))
+        train = {}
+        for wt, fc, axis in ((8, True, {"data": RANKS, "model": 1}),
+                             (16, False, {"data": 1, "model": RANKS})):
+            it = TrainingPipeline(os.path.dirname(shards), batch, wt,
+                                  is_extraction_on_the_fly=True,
+                                  seed=0).batches()
+            bs = [next(it) for _ in range(steps)]
+            stacked = [np.stack([b[i] for b in bs]) for i in range(3)]
+            state = training.init_state(torch.Generator().manual_seed(0),
+                                        wt, fc, device="cpu")
+            gen = torch.Generator().manual_seed(1)
+            train[wt] = (fc, axis, training.state_to_numpy(state),
+                         gen.get_state().numpy(), stacked)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # The single-device references, alone on the card.
+    refs = {}
+    for what, fr, policy, pnn in (("a", frame, "regular", None),
+                                  ("b", sw_frame, "switch", zoo_s)):
+        sync()
+        t0 = time.perf_counter()
+        single = wavefront2.encode_frame_wavefront2(fr, QP, policy=policy,
+                                                    pnn=pnn, device=dev)
+        sync()
+        refs[what] = (single, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    v1 = wavefront.encode_frame_wavefront(frame, QP, block_size=V1_BLOCK,
+                                          serialize=False, device=dev)
+    sync()
+    refs["c"] = (v1, time.perf_counter() - t0)
+    for wt in (8, 16):
+        fc, axis, blob, gstate, stacked = train[wt]
+        gen = torch.Generator()
+        gen.set_state(torch.as_tensor(gstate))
+        wa, hl = training.draw_masks(_generator_copy(gen), batch, wt)
+        state = training.state_from_numpy(blob, dev)
+        with training.exact_steps():
+            g64 = training.loss_and_grads(
+                training.tree_map(torch.Tensor.double, state.params),
+                *[x[0] for x in stacked], mean, wa, hl, width_target=wt,
+                is_fully_connected=fc, coeff_l2=1.0, coeff_grad=0.0)[2]
+            g32 = training.loss_and_grads(
+                state.params, *[x[0] for x in stacked], mean, wa, hl,
+                width_target=wt, is_fully_connected=fc, coeff_l2=1.0,
+                coeff_grad=0.0)[2]
+        out = {}
+        for dtype in (torch.float64, torch.float32):
+            sync()
+            t0 = time.perf_counter()
+            ref_state, ref_losses = training.train_chunk(
+                training.cast_state(state, dtype), _generator_copy(gen),
+                *stacked, mean, (0, 0), width_target=wt,
+                is_fully_connected=fc, coeff_l2=1.0, coeff_grad=0.0,
+                random_masks=True)
+            sync()
+            out[dtype] = (training.state_to_numpy(ref_state),
+                          ref_losses.cpu().numpy(),
+                          time.perf_counter() - t0)
+        refs[wt] = (out, zoo.params_to_numpy(g64), zoo.params_to_numpy(g32))
+    t_refs = time.perf_counter() - t_phase
+
+    # The ranks, after the references: each side's seconds are its own.
+    calls = {
+        "a tiled halo v2 regular": (tiled.encode_cases, ([(
+            "encode_frame_tiled_halo_v2", frame, QP,
+            dict(policy="regular", serialize=True, device=rank_dev))],),
+            None),
+        "b tiled halo v2 switch": (tiled.encode_cases, ([(
+            "encode_frame_tiled_halo_v2", sw_frame, QP,
+            dict(policy="switch", pnn=zoo_s, serialize=True,
+                 device=rank_dev))],), None),
+        "c v1 tiled halo + tiled": (tiled.encode_cases, ([
+            ("encode_frame_tiled_halo", frame, QP,
+             dict(block_size=V1_BLOCK, device=rank_dev)),
+            ("encode_frame_tiled", frame, QP,
+             dict(block_size=V1_BLOCK, device=rank_dev))],), None)}
+    for wt in (8, 16):
+        fc, axis, blob, gstate, stacked = train[wt]
+        for name, k, wide in (("float32", steps, False),
+                              ("first step", 1, False),
+                              ("float64", steps, True)):
+            calls[f"d w{wt} {name}"] = (
+                sharded_training.chunk_from_state,
+                (axis, wt, fc, blob, gstate, *[x[:k] for x in stacked],
+                 mean), dict(float64=wide, device=rank_dev))
+    calls["built"] = (_build_dir.built, (), None)
+    t0 = time.perf_counter()
+    got = mesh.spawn_ranks(mesh.run_calls, RANKS,
+                           device="cuda:0" if on_card else "cpu",
+                           timeout=600, args=(list(calls.values()),))
+    t_ranks = time.perf_counter() - t0
+    ranks = [dict(zip(calls, out)) for out in got]
+    for r, out in enumerate(ranks):
+        if out["built"][0]:
+            raise AssertionError(f"rank {r} built {out['built'][0]}: the "
+                                 f"ranks must load phase 1's libraries")
+        say(f"rank {r}: " + "; ".join(
+            f"{n} {sec:.3f} s" for n, (_, sec) in out.items()
+            if n != "built"))
+    say(f"{RANKS} ranks on {rank_dev} (Gloo, sharing the card): spawn to "
+        f"results {t_ranks:.3f} s; the references before them, alone, "
+        f"{t_refs:.3f} s; {smi}")
+
+    # (a) and (b): the quadtree halo encode against one device.
+    for what, key in (("a", "a tiled halo v2 regular"),
+                      ("b", "b tiled halo v2 switch")):
+        single, sec = refs[what]
+        policy = single.policy
+        want = (single.reconstruction.tobytes(), single.mode_map.tobytes(),
+                tree_digest(single.ctu_trees), single.bitstream)
+        for r, out in enumerate(ranks):
+            (results, launches), rsec = out[key]
+            res = results[0]
+            have = (res.reconstruction.tobytes(), res.mode_map.tobytes(),
+                    tree_digest(res.ctu_trees), res.bitstream)
+            for name, x, y in zip(("recon", "mode map", "trees", "stream"),
+                                  have, want):
+                if x != y:
+                    raise AssertionError(f"phase 20 ({what}) rank {r}: "
+                                         f"{name} differs from one device")
+            trials = sum(launches["unit_trial"].values())
+            mergers = sum(launches["merger_int"].values())
+            if on_card and (trials == 0 or (policy == "switch")
+                            != (mergers > 0)):
+                raise AssertionError(f"phase 20 ({what}) rank {r}: trial "
+                                     f"launches {trials}, merger "
+                                     f"{mergers}")
+            say(f"({what}) {res.reconstruction.shape[0]}x"
+                f"{res.reconstruction.shape[1]} {policy} tiled halo v2, "
+                f"rank {r}: {rsec:.3f} s, trial launches "
+                f"{dict(sorted(launches['unit_trial'].items()))} "
+                f"(total {trials}), merger launches "
+                f"{dict(sorted(launches['merger_int'].items()))} "
+                f"(total {mergers}); equal to one device")
+        say(f"({what}) one device (alone): {sec:.3f} s, "
+            f"{len(single.bitstream)} bytes")
+
+    # (c) the v1 halo encode against one device.
+    v1, sec = refs["c"]
+    for r, out in enumerate(ranks):
+        (results, _), rsec = out["c v1 tiled halo + tiled"]
+        (recon, modes, _), (ind, _, _) = results
+        if not np.array_equal(recon, v1.reconstruction) or not \
+                np.array_equal(np.repeat(np.repeat(modes, V1_BLOCK // 4, 0),
+                                         V1_BLOCK // 4, 1), v1.mode_map):
+            raise AssertionError(f"phase 20 (c) rank {r}: v1 halo differs "
+                                 f"from one device")
+        if ind.shape != frame.shape:
+            raise AssertionError(f"phase 20 (c): tiled shape {ind.shape}")
+    say(f"(c) v1 n={V1_BLOCK} {h}x{w}: tiled halo equal to one device "
+        f"({sec:.3f} s there, alone); independent stripes "
+        f"{'equal' if np.array_equal(ind, v1.reconstruction) else 'differ'}"
+        f" at the stripe boundary")
+
+    # (d) the sharded chunks against one device and float64.
+    def grads_ok(got, want, what):
+        worst, got = 0.0, dict(_leaves(got))
+        for key, b in _leaves(want):
+            err = np.abs(np.asarray(got[key], np.float64) - b) \
+                / np.abs(b).max()
+            worst = max(worst, float(err.max()))
+            if np.mean(err <= 1e-4) < 0.98 or err.max() > 5e-2:
+                raise AssertionError(f"phase 20 (d) {what} {key}: first "
+                                     f"step gradients off float64 by "
+                                     f"{err.max():.3g}")
+        return worst
+
+    def state_err(got, want):
+        """Per part (params, mu, nu): the worst |difference| / the leaf's
+        max |value|, and the entries past 1e-5 of it."""
+        out = {}
+        for part, tree, ref in (
+                ("params", got["params"], want["params"]),
+                ("mu", got["opt_state"][0].mu, want["opt_state"][0].mu),
+                ("nu", got["opt_state"][0].nu, want["opt_state"][0].nu)):
+            have, worst, off = dict(_leaves(tree)), 0.0, 0
+            for key, b in _leaves(ref):
+                b = np.asarray(b, np.float64)
+                d = np.abs(np.asarray(have[key], np.float64) - b)
+                m = float(np.abs(b).max()) or 1.0
+                worst = max(worst, float(d.max()) / m)
+                off += int((d > 1e-5 * m).sum())
+            out[part] = (worst, off)
+        return out
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    c1 = np.float32(1 - training.B1)
+    for wt in (8, 16):
+        fc, axis, _, _, _ = train[wt]
+        out, g64, g32 = refs[wt]
+        ref32, ref_losses, sec = out[torch.float32]
+        ref64, ref_losses64, sec64 = out[torch.float64]
+        single_err = grads_ok(g32, g64, f"w{wt} one device")
+        total = sum(np.size(b) for _, b in _leaves(ref64["params"]))
+        for r, rk in enumerate(ranks):
+            (losses, got), rsec = rk[f"d w{wt} float32"]
+            (_, first), _ = rk[f"d w{wt} first step"]
+            (losses64, got64), rsec64 = rk[f"d w{wt} float64"]
+            e32, e64 = rel(losses, ref_losses), rel(losses64, ref_losses64)
+            if e32 > 1e-5 or e64 > 1e-5:
+                raise AssertionError(f"phase 20 (d) w{wt} rank {r}: loss "
+                                     f"rel error {e32:.3g} (float32), "
+                                     f"{e64:.3g} (float64)")
+            g_sharded = training.tree_map(
+                lambda mu: np.asarray(mu) / c1, first["opt_state"][0].mu)
+            sharded_err = grads_ok(g_sharded, g64, f"w{wt} rank {r}")
+            s64, s32 = state_err(got64, ref64), state_err(got, ref32)
+            for part, (worst, off) in s64.items():
+                if off:
+                    raise AssertionError(
+                        f"phase 20 (d) w{wt} rank {r}: float64 {part} "
+                        f"{off} entries past 1e-5 of their leaf's max "
+                        f"(worst {worst:.3g})")
+            fmt = lambda e: ", ".join(f"{p} {w_:.2e} ({o} past 1e-5)"
+                                      for p, (w_, o) in e.items())
+            say(f"(d) w{wt} {'FC' if fc else 'conv'} {axis}: {steps} steps "
+                f"at batch {batch}, rank {r} {rsec:.3f} s float32, "
+                f"{rsec64:.3f} s float64; one device {sec:.3f} / "
+                f"{sec64:.3f} s (alone); loss rel error {e32:.2e} "
+                f"(float64 {e64:.2e}); first step's gradients off float64 "
+                f"by at most {sharded_err:.2e} (one device {single_err:.2e})"
+                f" of a leaf's max; after {steps} steps, of {total} "
+                f"parameters, max rel to the leaf's max: float64 {fmt(s64)};"
+                f" float32 (not held) {fmt(s32)}; losses "
+                f"{[round(float(x), 3) for x in losses]}")
+    total = time.perf_counter() - t_phase
+    say(f"phase 20: {total:.1f} s ({t_refs:.1f} s the references, "
+        f"{t_ranks:.1f} s the ranks) on {smi}")
+    return total
+
+
+def _generator_copy(gen):
+    """A CPU generator in `gen`'s state (draws from it leave `gen` as it
+    was)."""
+    import torch
+
+    copy = torch.Generator()
+    copy.set_state(gen.get_state())
+    return copy
 
 
 def _leaves(tree, prefix=""):

@@ -22,6 +22,12 @@ seconds: dict[str, float] = {}
 output: dict[str, str] = {}
 
 
+def built() -> dict:
+    """{name: seconds} of every build this process ran (none where every
+    library was already in the build directory)."""
+    return dict(seconds)
+
+
 def build_once(name: str, sources, command) -> str:
     """Returns the path of library `name` built from `sources`.
 

@@ -7,7 +7,8 @@ and measure (rate bpp, PSNR, encode and decode time), cache the sweep, and
 compute Bjontegaard deltas over the low / high / full QP ranges (split at
 the list midpoint, `comparing_rate_distortion.py:385-390`).  The NN
 policies' PNN forwards run on `device` ("cuda" by default; a CUDA device
-without a card raises).  The plot of the curves is not ported.
+without a card raises).  `plot_rate_distortion_curves` draws the curves
+(matplotlib, imported when it is called).
 """
 
 from __future__ import annotations
@@ -128,3 +129,25 @@ def bd_rate_low_high_full(points_anchor: List[RdPoint],
         "high": bd(a_high, t_high),
         "full": bd(points_anchor, points_test),
     }
+
+
+def plot_rate_distortion_curves(list_of_points: dict, path_to_png: str,
+                                title: str = "") -> None:
+    """Saves an RD-curve comparison plot ({label: [RdPoint, ...]})."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(7, 5))
+    for label, points in list_of_points.items():
+        ax.plot([p.rate_bpp for p in points], [p.psnr_db for p in points],
+                marker="o", label=label)
+    ax.set_xlabel("rate (bpp)")
+    ax.set_ylabel("PSNR (dB)")
+    ax.set_title(title)
+    ax.grid(True, alpha=0.3)
+    ax.legend()
+    os.makedirs(os.path.dirname(path_to_png) or ".", exist_ok=True)
+    fig.savefig(path_to_png, dpi=120, bbox_inches="tight")
+    plt.close(fig)

@@ -66,9 +66,10 @@ def weight_l2_norm(params):
 
 
 def total_loss(params, targets, predictions, coeff_l2: float,
-               coeff_grad: float):
+               coeff_grad: float, weight_l2=weight_l2_norm):
     """Scaled prediction losses + weight decay; returns (loss, dict of
-    terms)."""
+    terms).  `weight_l2` computes the decay's sum of squares from
+    `params` (sharded training sums it over the shards)."""
     if coeff_l2 < 0.0 or coeff_grad < 0.0:
         raise ValueError("loss coefficients must be non-negative.")
     if coeff_l2 == 0.0 and coeff_grad == 0.0:
@@ -83,6 +84,6 @@ def total_loss(params, targets, predictions, coeff_l2: float,
         terms["grad_error"] = coeff_grad * prediction_error_gradient(
             targets, predictions)
         loss = loss + terms["grad_error"]
-    terms["weight_decay"] = WEIGHT_DECAY_COEFF * weight_l2_norm(params)
+    terms["weight_decay"] = WEIGHT_DECAY_COEFF * weight_l2(params)
     loss = loss + terms["weight_decay"]
     return loss, terms

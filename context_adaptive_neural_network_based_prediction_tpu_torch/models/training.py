@@ -49,11 +49,13 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..data.pipeline import TrainingPipeline
 from . import losses, pnn, zoo
 
 NB_ITERS_TRAINING = 800_000
@@ -156,6 +158,16 @@ def state_from_numpy(blob: dict, device="cuda") -> TrainState:
                       int(blob["step"]))
 
 
+def cast_state(state: TrainState, dtype) -> TrainState:
+    """A copy of `state` with its params and Adam moments in `dtype`
+    (float64: a float64 run, the reference of a float32 one)."""
+    adam, sched = state.opt_state
+    cast = lambda tree: tree_map(lambda t: t.to(dtype, copy=True), tree)
+    return TrainState(cast(state.params),
+                      (AdamState(adam.count, cast(adam.mu), cast(adam.nu)),
+                       sched), state.step)
+
+
 def state_to_numpy(state: TrainState) -> dict:
     """The inverse of `state_from_numpy`: numpy in the JAX layout, the
     counts as int32 scalars as optax keeps them."""
@@ -237,11 +249,14 @@ def _as_tensor(a, dev):
 def loss_and_grads(params: dict, portions_above_uint8, portions_left_uint8,
                    targets_uint8, mean_training: float, wa, hl, *,
                    width_target: int, is_fully_connected: bool,
-                   coeff_l2: float, coeff_grad: float):
+                   coeff_l2: float, coeff_grad: float, forward=None,
+                   weight_l2=losses.weight_l2_norm):
     """The loss, its terms and the gradients (a dict like `params`) on one
     uint8 batch with per-example masks `wa`, `hl` ((N,) tensors), in the
     params' dtype: float32, or float64 for a reference of a float32
-    step (float32 gradients of sums over many positions can cancel)."""
+    step (float32 gradients of sums over many positions can cancel).
+    `forward(params, inputs)` and `weight_l2(params)` replace the
+    single-device forward and decay (sharded training's)."""
     leaf = _get(params, next(_paths(params)))
     dev, dtype = leaf.device, leaf.dtype
     w = width_target
@@ -270,9 +285,10 @@ def loss_and_grads(params: dict, portions_above_uint8, portions_left_uint8,
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     with torch.enable_grad():
-        preds = pnn.forward_train(tparams, inputs, w, is_fully_connected)
+        preds = (forward(tparams, inputs) if forward is not None else
+                 pnn.forward_train(tparams, inputs, w, is_fully_connected))
         loss, terms = losses.total_loss(tparams, targets, preds, coeff_l2,
-                                        coeff_grad)
+                                        coeff_grad, weight_l2)
         gl = torch.autograd.grad(loss, leaves)
     grads: dict = {}
     for path, g in zip(paths, gl):
@@ -414,3 +430,57 @@ def find_latest_checkpoint(path_to_directory: str):
                 best_path, best_step = (os.path.join(path_to_directory, name),
                                         step)
     return best_path, best_step
+
+
+# ------------------------------------------------------------------ runs ----
+
+INIT_SEED, MASK_SEED = 0, 1
+
+
+def run_training(out_dir: str, shards_dir: str, width_target: int, *,
+                 iters: int, batch_size: int, chunk: int,
+                 snapshot_every: int, init_state, state_from_blob, chunk_fn,
+                 save, log=print):
+    """Trains to `iters` steps on the shards in `shards_dir` (the shard
+    pipeline, on-the-fly extraction for widths >= 16), `chunk` steps a
+    call, resuming from the newest snapshot in `out_dir`: the run of
+    `cli/train_pnn.py`, on one device or sharded.
+
+    `init_state(generator)` draws a new net from a generator seeded
+    `INIT_SEED`; `state_from_blob(blob)` loads a checkpoint's content;
+    `chunk_fn(state, mask_generator, above, left, targets)` runs K updates
+    over (K, B, ...) uint8 stacks and returns (state, losses (K,));
+    `save(state, mask_generator)` writes a snapshot every `snapshot_every`
+    steps and at the end and returns its path (None where this process
+    writes none).  The masks come from a generator seeded `MASK_SEED`, or
+    in the checkpoint's state.  Returns the last state."""
+    mask_gen = torch.Generator().manual_seed(MASK_SEED)
+    ckpt, start = find_latest_checkpoint(out_dir)
+    if ckpt:
+        blob = read_checkpoint(ckpt)
+        if "mask_generator_state" in blob:
+            mask_gen.set_state(torch.from_numpy(
+                blob["mask_generator_state"]))
+        state = state_from_blob(blob)
+        log(f"resumed from {ckpt} (step {start})")
+    else:
+        state = init_state(torch.Generator().manual_seed(INIT_SEED))
+    batches = TrainingPipeline(
+        shards_dir, batch_size, width_target,
+        is_extraction_on_the_fly=(width_target >= 16)).batches()
+    t0 = time.time()
+    it = int(state.step)
+    while it < iters:
+        k = min(chunk, iters - it)
+        stacked = [next(batches) for _ in range(k)]
+        above, left, target = (np.stack([b[i] for b in stacked])
+                               for i in range(3))
+        state, losses_k = chunk_fn(state, mask_gen, above, left, target)
+        it += k
+        log(f"step {it}: loss {float(losses_k[-1]):.3f} "
+            f"({(it - int(start)) / (time.time() - t0):.1f} it/s)")
+        if it % snapshot_every == 0 or it == iters:
+            path = save(state, mask_gen)
+            if path is not None:
+                log(f"snapshot {path}")
+    return state

@@ -159,18 +159,20 @@ def load_frozen_params(path: str):
     return params, "fully_connected" in params
 
 
-def _leaf_to_tensor(path, a, device, weight_dtype):
+def _leaf_to_tensor(path, a, device, weight_dtype, dtype=torch.float32):
     """One float parameter in the port's layout: conv weights TF (k, k, in,
     out) and transpose-conv weights TF (k, k, out, in) both become (dim 3,
     dim 2, k, k), i.e. (out, in, k, k) and (in, out, k, k); merger weights
     (M, P, O) -> (P, O, M) and biases (M, O) -> (O, M); FC and merger
-    weights in `weight_dtype`, everything else float32."""
-    a = np.asarray(a, np.float32)
+    weights in `weight_dtype`, everything else in `dtype` (float64: every
+    leaf)."""
+    wide = dtype == torch.float64
+    a = np.asarray(a, np.float64 if wide else np.float32)
     name, scope = path[-1], path[-2] if len(path) > 1 else ""
-    dtype = torch.float32
+    weight_dtype = dtype if wide else weight_dtype
     if scope == "channelwise_fully_connected_merger":
         a = a.transpose(1, 2, 0) if name == "weights" else a.T
-        dtype = weight_dtype if name == "weights" else torch.float32
+        dtype = weight_dtype if name == "weights" else dtype
     elif name == "weights" and a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)
     elif name.startswith("weights_"):
@@ -182,29 +184,35 @@ def _leaf_to_tensor(path, a, device, weight_dtype):
 
 
 def params_from_numpy(params: dict, device="cuda",
-                      weight_dtype=torch.float32) -> dict:
+                      weight_dtype=torch.float32,
+                      dtype=torch.float32) -> dict:
     """The JAX package's nested float params (numpy arrays, or anything
     `np.asarray` takes) -> the same nesting of tensors on `device`, laid out
     for `pnn.forward`.  `weight_dtype` (float32 or bfloat16) is the storage
     of the two kernels' weights (the FC layers and the merger); the
-    convolutions stay float32."""
+    convolutions stay float32.  `dtype` float64 stores every leaf in
+    float64 (a float64 training run, the reference of a float32 one)."""
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype must be float32 or bfloat16, got "
                          f"{weight_dtype}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
     dev = torch.device(device)
 
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return _leaf_to_tensor(path, node, dev, weight_dtype)
+        return _leaf_to_tensor(path, node, dev, weight_dtype, dtype)
 
     return walk(params, ())
 
 
 def _leaf_to_numpy(path, t):
     """The inverse of `_leaf_to_tensor`: one parameter tensor back in the
-    JAX layout, numpy float32 (bfloat16 widens exactly)."""
-    a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    JAX layout, numpy float32 (bfloat16 widens exactly), or float64 from
+    float64."""
+    a = t.detach().to(device="cpu", dtype=torch.float64
+                      if t.dtype == torch.float64 else torch.float32).numpy()
     name, scope = path[-1], path[-2] if len(path) > 1 else ""
     if scope == "channelwise_fully_connected_merger":
         a = a.transpose(2, 0, 1) if name == "weights" else a.T
@@ -216,8 +224,8 @@ def _leaf_to_numpy(path, t):
 def params_to_numpy(params: dict) -> dict:
     """Tensors in the port's layouts (`params_from_numpy`'s output, or
     trained params) -> the JAX package's nested dict of numpy float32
-    arrays: HWIO conv weights, HWOI transpose-conv weights, merger (M, P,
-    O) weights and (M, O) biases."""
+    arrays (float64 where the tensors are): HWIO conv weights, HWOI
+    transpose-conv weights, merger (M, P, O) weights and (M, O) biases."""
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}

@@ -40,8 +40,19 @@ A batch of NF frames puts its frames on the slot axis, b_eff = b_max * NF
 slots ordered (slot, frame), as port `wavefront2` does; each frame's
 result equals its own encode.  Slots off the frame read clamped positions
 and write into a pad row below the frame, the JAX package's branchless
-commit (:263-274), which no valid read touches.  Not ported: the halo
-sharding of `halo_axis` / `n_tiles` (the tiled encoders).
+commit (:263-274), which no valid read touches.
+
+Halo mode (JAX `halo_axis` / `n_tiles`, :39-58, :241-290; the tiled
+encoder `parallel/tiled.encode_frame_tiled_halo`): rank d of a process
+group encodes stripe d of a frame on the global schedule, its step t_loc
+= t - 2 * nby * d of the global step t.  Its buffers carry one halo row
+above the stripe (`top` = 1), which holds the bottom pixel row of stripe
+d - 1: after every global step each rank sends its bottom row to rank
+d + 1 (`mesh.shift_down`), so the stripe's first block row sees the row
+above as the single-frame encode does, and the blocks of stripe d > 0
+have an above neighbour at by = 0.  A rank skips the steps where its
+stripe has no block (t_loc outside its schedule) but takes part in every
+exchange.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from ..codec import encoder as enc_mod
 from ..codec import sao as sao_mod
 from ..ops import intra, transform
 from ..ops.reference_samples import DC_FILL, FILTER_THRESHOLD
+from . import mesh
 
 BLOCK_SIZES = (4, 8, 16, 32)
 RATE_TABLE_SIZE = 1 << 15        # |q| < 2^15 at every QP and size
@@ -86,10 +98,13 @@ def mode_bits_table() -> np.ndarray:
     return out
 
 
-def _build_plan(height: int, width: int, n: int, qp: int, n_frames: int):
+def _build_plan(height: int, width: int, n: int, qp: int, n_frames: int,
+                top: int = 0, has_halo: bool = False):
     """The host tables of an encode: the step schedule and, per (step,
     slot), the flat indices of every read and write (JAX package :55-81,
-    :249-257)."""
+    :249-257).  `top` = 1 puts a halo row above the frame in the buffers
+    (halo mode), `has_halo` makes it the above neighbour of the first
+    block row (a stripe below another)."""
     if n not in BLOCK_SIZES:
         raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {n}")
     if height % n or width % n:
@@ -108,20 +123,23 @@ def _build_plan(height: int, width: int, n: int, qp: int, n_frames: int):
     rep = lambda a: np.repeat(a, nf, axis=1)           # (T, b_max * NF)
     b_y, b_x, valid = rep(b_y), rep(b_x), rep(valid)
     f = np.tile(np.arange(nf), b_max)[None, :]
-    plane = (height + n) * width                      # one frame's buffer
+    plane = (top + height + n) * width                # one frame's buffer
     y, x = b_y * n, b_x * n
     # References: the row above at columns x-1 .. x+2n-1 and the column
-    # left at rows y .. y+2n-1, clamped to the frame (JAX :89-92).
+    # left at rows y .. y+2n-1, clamped to the frame and its halo row
+    # (JAX :89-92; buffer rows are offset by `top`).
     cols = np.clip(x[..., None] - 1 + np.arange(2 * n + 1), 0, width - 1)
-    top_row = np.clip(y - 1, 0, height - 1)[..., None]
-    rows = np.clip(y[..., None] + np.arange(2 * n), 0, height - 1)
+    top_row = np.clip(y - 1 + top, 0, height - 1 + top)[..., None]
+    rows = np.clip(y[..., None] + np.arange(2 * n) + top, 0,
+                   height - 1 + top)
     left_col = np.clip(x - 1, 0, width - 1)[..., None]
     ref_idx = np.concatenate([top_row * width + cols,
                               rows * width + left_col], -1) \
         + (f * plane)[..., None]
     # The block's origin in the frame and recon buffers; off the frame,
     # the pad rows below it (JAX :267-268).
-    blk = np.where(valid, y * width + x, height * width) + f * plane
+    blk = np.where(valid, (y + top) * width + x,
+                   (height + top) * width) + f * plane
     cells = (nby + 1) * nbx
     cell = np.where(valid, b_y * nbx + b_x, nby * nbx) + f * cells
     left_cell = b_y * nbx + np.maximum(b_x - 1, 0) + f * cells
@@ -133,14 +151,15 @@ def _build_plan(height: int, width: int, n: int, qp: int, n_frames: int):
     use_filtered = np.array(
         [m != 1 and min(abs(m - 10), abs(m - 26)) > FILTER_THRESHOLD[n]
          for m in range(35)])
+    has_above = (b_y > 0) | bool(has_halo)
     return dict(
         height=height, width=width, n=n, qp=qp, n_frames=nf, nbx=nbx,
-        nby=nby, n_steps=n_steps, b_max=b_max, b_eff=b_max * nf,
+        nby=nby, n_steps=n_steps, b_max=b_max, b_eff=b_max * nf, top=top,
         plane=plane, cells=cells,
         ref_idx=ref_idx.astype(np.int64), blk=blk.astype(np.int64),
         cell=cell.astype(np.int64), left_cell=left_cell.astype(np.int64),
-        has_above=b_y > 0, has_left=b_x > 0,
-        has_ar=(b_y > 0) & (b_x < nbx - 1),
+        has_above=has_above, has_left=b_x > 0,
+        has_ar=has_above & (b_x < nbx - 1),
         blk_off=(np.arange(n)[:, None] * width
                  + np.arange(n)[None, :]).reshape(-1).astype(np.int64),
         use_filtered=use_filtered,
@@ -163,12 +182,14 @@ _PLAN_CACHE: dict = {}
 _PLAN_CACHE_MAX = 4
 
 
-def _get_plan(height, width, n, qp, n_frames, device):
+def _get_plan(height, width, n, qp, n_frames, device, top=0,
+              has_halo=False):
     """The cached (plan, device plan) of an encode configuration."""
-    key = (height, width, n, qp, n_frames, str(torch.device(device)))
+    key = (height, width, n, qp, n_frames, str(torch.device(device)), top,
+           has_halo)
     hit = _PLAN_CACHE.get(key)
     if hit is None:
-        plan = _build_plan(height, width, n, qp, n_frames)
+        plan = _build_plan(height, width, n, qp, n_frames, top, has_halo)
         hit = (plan, _device_plan(plan, device))
         _PLAN_CACHE[key] = hit
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
@@ -267,20 +288,23 @@ def _step(plan, dp, st, t):
     st["qcoeffs"][cell] = q[slots, best].reshape(b, n * n).to(torch.int32)
 
 
-def run(plan, dp, frames_u8):
+def run(plan, dp, frames_u8, group=None):
     """The device half of the encode: (recons (NF, H, W) uint8, modes (NF,
     nby, nbx) int32, qcoeffs (NF, nby, nbx, n, n) int32), numpy (JAX
-    `run` :290-303)."""
+    `run` :290-303).  With a process `group` (halo mode, a plan with
+    `top` = 1), this rank's stripe of the global schedule, its bottom row
+    sent down after every global step."""
     dev = dp["rate"].device
     h, w, n, nf = plan["height"], plan["width"], plan["n"], plan["n_frames"]
+    top = plan["top"]
     nbx, nby = plan["nbx"], plan["nby"]
     frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(
         device=dev, dtype=torch.int32)
     if tuple(frames.shape) != (nf, h, w):
         raise ValueError(f"frames {tuple(frames.shape)} != plan "
                          f"{(nf, h, w)}")
-    frame = torch.zeros((nf, h + n, w), dtype=torch.int32, device=dev)
-    frame[:, :h] = frames
+    frame = torch.zeros((nf, top + h + n, w), dtype=torch.int32, device=dev)
+    frame[:, top:top + h] = frames
     st = dict(
         frame=frame.view(-1),
         recon=torch.zeros(nf * plan["plane"], dtype=torch.int32, device=dev),
@@ -288,12 +312,44 @@ def run(plan, dp, frames_u8):
                          device=dev),
         qcoeffs=torch.zeros((nf * plan["cells"], n * n), dtype=torch.int32,
                             device=dev))
-    for t in range(plan["n_steps"]):
-        _step(plan, dp, st, t)
-    recon = st["recon"].view(nf, h + n, w)[:, :h].to(torch.uint8)
+    # One loop over the global schedule: without a group it is this
+    # plan's own (one stripe, offset 0) and nothing is exchanged.
+    d, ranks = (0, [0]) if group is None else mesh.group_position(group)
+    offset = 2 * plan["nby"] * d
+    rows = st["recon"].view(nf, top + h + n, w)
+    for t in range(_halo_steps(plan, len(ranks))):
+        if 0 <= t - offset < plan["n_steps"]:
+            _step(plan, dp, st, t - offset)
+        if group is not None:
+            recv = mesh.shift_down(rows[0, top + h - 1], group)
+            if recv is not None:
+                rows[0, 0] = recv
+    recon = st["recon"].view(nf, top + h + n, w)[:, top:top + h].to(
+        torch.uint8)
     modes = st["modes"].view(nf, nby + 1, nbx)[:, :nby]
     qcoeffs = st["qcoeffs"].view(nf, nby + 1, nbx, n, n)[:, :nby]
     return recon.cpu().numpy(), modes.cpu().numpy(), qcoeffs.cpu().numpy()
+
+
+def _halo_steps(plan, n_tiles):
+    """The global schedule's steps over `n_tiles` stripes (JAX :60)."""
+    return (plan["nbx"] - 1) + 2 * (plan["nby"] * n_tiles - 1) + 1
+
+
+def encode_stripe_halo(stripe_uint8: np.ndarray, qp: int, group, *,
+                       block_size: int = 16, device="cuda"):
+    """This rank's stripe (H_s, W) of a frame split into the group's
+    stripes, encoded on the global schedule with the halo exchange (the
+    JAX package's `_jitted_wavefront(..., halo_axis, n_tiles)`): (recon
+    (H_s, W) uint8, modes (nby_s, nbx), qcoeffs (nby_s, nbx, n, n)),
+    numpy.  Every rank of `group` calls it at the same time."""
+    stripe = np.asarray(stripe_uint8)
+    h, w = stripe.shape
+    d, _ = mesh.group_position(group)
+    plan, dp = _get_plan(h, w, block_size, qp, 1, device, top=1,
+                         has_halo=d > 0)
+    recons, modes, qcoeffs = run(plan, dp, stripe[None], group)
+    return recons[0], modes[0], qcoeffs[0]
 
 
 def encode_frames_wavefront_batch(frames_uint8: np.ndarray, qp: int, *,

@@ -54,7 +54,24 @@ trees and packed by the native CABAC packer.  `encode_stream_wavefront2`
 runs that host half of a batch after its device half.
 `encode_frame_wavefront2_hm` writes the Annex-B stream instead, after
 deblocking and SAO on the host (`codec/deblock.py`, `codec/sao.py`,
-`codec/hm_encoder.py`).  Not ported: halo sharding across devices.
+`codec/hm_encoder.py`).
+
+Halo mode (the JAX package's `halo_axis` / `n_tiles`, :236-243, :261-271,
+:379-388, :442-449, :850-855, :1449-1471; the tiled encoder
+`parallel/tiled.encode_frame_tiled_halo_v2`): rank d of a process group
+encodes stripe d of the frame's CTB rows on the global schedule, its step
+t_loc = t - 2 * sby * d of the global step t, and stores its decisions at
+the global step, so that `_assemble_arrays(..., t_offset=2 * sby * d)`
+places them.  After every global step each rank sends its bottom
+reconstruction plane down to rank d + 1 (`mesh.shift_down`), which puts
+it into its plane 0 (the halo plane), rolled by -2 * ctb * sby along x
+into its own skew frame.  The reference tables of stripes d > 0 are the
+interior variants: those of a frame one CTB row taller, from its second
+CTB row on, where the stripe's first row sees a coded row above.  A rank
+skips the steps where its stripe has no CTB but takes part in every
+exchange.  CTB 64, frame batches and rate evolution are refused under
+halo, as in the JAX package; its `CANP_HALO_NOOP` timing probe (the
+exchange left out, outputs wrong on purpose) is not ported.
 """
 
 from __future__ import annotations
@@ -73,7 +90,7 @@ from ..codec import sao as sao_mod
 from ..models import pnn_q
 from ..ops import intra, transform, unit_fused
 from ..ops import reference_samples as rs
-from . import rate_model
+from . import mesh, rate_model
 
 CTB = 32
 NN_SIZES = (4, 8, 16, 32)   # unit sizes a PNN can serve at CTB 32
@@ -284,14 +301,19 @@ _GROUPS = {4: 1, 8: 1, 16: 6, 32: 36}
 def _build_wavefront2(height: int, width: int, qp: int,
                       lam_scale: float = 1.0, policy: str = "regular",
                       bundle=None, ctb: int = CTB, enable_nxn: bool = True,
-                      n_frames: int = 1, rate_evolve: bool = False) -> dict:
+                      n_frames: int = 1, rate_evolve: bool = False,
+                      halo: bool = False, n_tiles: int = 1,
+                      stripe: int = 0) -> dict:
     """The encoder's plan: geometry, per-size constants and LUTs (numpy).
 
     Mirrors the table-building half of the JAX package's
-    `_build_wavefront2` (`parallel/wavefront2.py:208-535`) for CTB 32 and
-    no halo; every table is equal to the JAX package's.  `n_frames` > 1
-    interleaves that many frames into the plane axis.  NN policies take a
-    `PnnBundle` with quantized models."""
+    `_build_wavefront2` (`parallel/wavefront2.py:208-535`); every table is
+    equal to the JAX package's.  `n_frames` > 1 interleaves that many
+    frames into the plane axis.  NN policies take a `PnnBundle` with
+    quantized models.  With `halo`, the plan is stripe `stripe` of
+    `n_tiles` (`height` is the stripe's): the global step count, the
+    stripe's step offset and the interior table variants (chosen for
+    stripes below the first)."""
     if policy not in ("regular", "substitution", "switch"):
         raise ValueError(f"unknown policy {policy!r}")
     if policy != "regular" and bundle is None:
@@ -308,13 +330,22 @@ def _build_wavefront2(height: int, width: int, qp: int,
     if height % ctb or width % ctb:
         raise ValueError(f"wavefront2 needs frame dims that are multiples "
                          f"of {ctb} (crop/pad first)")
-    if rate_evolve and ctb != 32:
-        # The JAX package has no rate evolution at CTB 64 (:508-511).
+    if halo and ctb == 64:
+        raise NotImplementedError("halo sharding currently ships for CTB 32")
+    if halo and n_frames > 1:
+        raise NotImplementedError("frame batching is a single-device mode")
+    if rate_evolve and (halo or ctb != 32):
+        # The JAX package has no rate evolution at CTB 64 or under halo
+        # (:508-511).
         raise NotImplementedError(
             "rate_evolve ships for single-device CTB-32 first")
     n_modes = 36 if policy == "switch" else 35
     sbx, sby = width // ctb, height // ctb
     n_steps = (sbx - 1) + 2 * (sby - 1) + 1
+    # Halo: the global schedule over every stripe (JAX :269); a stripe's
+    # own steps are n_steps, from t_offset on.
+    n_steps_run = (sbx - 1) + 2 * (sby * n_tiles - 1) + 1 if halo \
+        else n_steps
     b_max = min(sby, (sbx + 1) // 2 + 1)
     NF = n_frames
     b_eff = b_max * NF        # the (slot, frame) axis, slot-major
@@ -339,10 +370,19 @@ def _build_wavefront2(height: int, width: int, qp: int,
     size_consts = {}
     for n in (4, 8, 16, 32):
         c = _unit_consts(n, qp, n_modes)
+        # Variant 0: the frame's top (single device, first stripe);
+        # variant 1 (halo): an interior stripe, the tables of a frame one
+        # CTB row taller from its second CTB row on (JAX :372-388).
         tt, tl = _fill_tables(height, width, n, ctb)
-        ctab, cmap = _dedupe(np.stack([_skew_triplets(tt, tl, n, ctb,
-                                                      OFF)]))
-        stab, smap = _dedupe(np.stack([_sel_tables(tt, tl, n)]))
+        trips = [_skew_triplets(tt, tl, n, ctb, OFF)]
+        sels = [_sel_tables(tt, tl, n)]
+        if halo:
+            k = CTB // n
+            ti_t, ti_l = _fill_tables(height + CTB, width, n, ctb)
+            trips.append(_skew_triplets(ti_t[k:], ti_l[k:], n, ctb, OFF))
+            sels.append(_sel_tables(ti_t[k:], ti_l[k:], n))
+        ctab, cmap = _dedupe(np.stack(trips))
+        stab, smap = _dedupe(np.stack(sels))
         c.update(
             ctab=ctab, cmap=cmap, smap=smap, sel=stab,
             # One-hot selection matrices (C, S, 4n+2) int8 (the JAX
@@ -361,8 +401,15 @@ def _build_wavefront2(height: int, width: int, qp: int,
         if n in nn_widths:
             # Context availability classes (JAX package :438-460).
             ctx_ok, am, lm = _nn_ctx_tables(height, width, n, ctb)
-            nn_tab, nn_cmap = _dedupe(np.stack([np.concatenate(
-                [ctx_ok[..., None].astype(np.float32), am, lm], -1)]))
+            variants = [np.concatenate(
+                [ctx_ok[..., None].astype(np.float32), am, lm], -1)]
+            if halo:
+                k = CTB // n
+                io, ia, il = _nn_ctx_tables(height + CTB, width, n, ctb)
+                variants.append(np.concatenate(
+                    [io[k:][..., None].astype(np.float32), ia[k:], il[k:]],
+                    -1))
+            nn_tab, nn_cmap = _dedupe(np.stack(variants))
             q = qmodels[n]
             c.update(nn_ok_c=nn_tab[:, 0] > 0.5,
                      nn_am_c=nn_tab[:, 1:1 + 3 * n],
@@ -375,6 +422,9 @@ def _build_wavefront2(height: int, width: int, qp: int,
                 enable_nxn=enable_nxn, rate_evolve=rate_evolve,
                 policy=policy, nn_widths=nn_widths, n_modes=n_modes,
                 n_frames=NF, sbx=sbx, sby=sby, n_steps=n_steps,
+                n_steps_run=n_steps_run, halo=halo, n_tiles=n_tiles,
+                t_offset=2 * sby * stripe if halo else 0,
+                variant=1 if halo and stripe > 0 else 0,
                 b_max=b_max, b_eff=b_eff, OFF=OFF, W_sk=W_sk, WIN=WIN,
                 PH=PH, n_planes=n_planes, cu8=cu8, OFF8=OFF8, W8=W8,
                 SB=SB, MODE_BITS=MODE_BITS, size_consts=size_consts)
@@ -431,7 +481,7 @@ def _substage_classes(plan, n, cmap):
     for ly, lx in _z_offsets(ctb, n):
         by_n = np.clip(by * un + ly // n, 0, plan["height"] // n - 1)
         bx_n = np.clip(bx * un + lx // n, 0, plan["width"] // n - 1)
-        out.append(cmap[0, by_n, bx_n])                    # (T, b)
+        out.append(cmap[plan["variant"], by_n, bx_n])      # (T, b)
     return np.stack(out, axis=1)
 
 
@@ -472,18 +522,20 @@ _PLAN_CACHE_MAX = 4
 
 
 def _get_plan(height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-              device, policy="regular", bundle=None, n_frames=1):
+              device, policy="regular", bundle=None, n_frames=1,
+              halo=False, n_tiles=1, stripe=0):
     """The cached (plan, device plan).  The key holds every argument the
     plan reads, the bundle by identity; an entry keeps its bundle alive,
     so the identity stays valid."""
     key = (height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
-           str(device), policy, id(bundle), n_frames)
+           str(device), policy, id(bundle), n_frames, halo, n_tiles, stripe)
     hit = _PLAN_CACHE.get(key)
     if hit is None:
         plan = _build_wavefront2(height, width, qp, lam_scale, policy=policy,
                                  bundle=bundle, ctb=ctb,
                                  enable_nxn=enable_nxn, n_frames=n_frames,
-                                 rate_evolve=rate_evolve)
+                                 rate_evolve=rate_evolve, halo=halo,
+                                 n_tiles=n_tiles, stripe=stripe)
         hit = (plan, _device_plan(plan, device), bundle)
         _PLAN_CACHE[key] = hit
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
@@ -517,11 +569,11 @@ _KEYS32 = ("m8", "q8", "s8", "m16", "q16", "s16", "m32", "q32", "s32",
 
 def _new_ys(plan, device):
     """Per-step decision outputs, preallocated: shapes of the JAX
-    package's stacked scan outputs (leading axis n_steps, slot axis
-    b_eff).  At CTB 64 the 32-rooted outputs carry the quadrant of the
-    64 CTB as a second axis (the JAX package's `sub`), beside the 64
-    level's m64 / q64 / s64."""
-    T, b = plan["n_steps"], plan["b_eff"]
+    package's stacked scan outputs (leading axis the run's steps, the
+    global schedule's under halo; slot axis b_eff).  At CTB 64 the
+    32-rooted outputs carry the quadrant of the 64 CTB as a second axis
+    (the JAX package's `sub`), beside the 64 level's m64 / q64 / s64."""
+    T, b = plan["n_steps_run"], plan["b_eff"]
     i8, i16 = torch.int8, torch.int16
     lead = (T,) if plan["ctb"] == 32 else (T, 4)
     z = lambda shape, dt: torch.zeros(lead + shape, dtype=dt, device=device)
@@ -541,11 +593,13 @@ def _new_ys(plan, device):
     return ys
 
 
-def _step(plan, dp, st, ys, t, impl):
+def _step(plan, dp, st, ys, t, impl, ty=None):
     """One wavefront step: the quadtree of every (slot, frame) CTB on
-    diagonal t (JAX package `step`, :844-1475).  At CTB 32 one CTB-32 body
-    at offset (0, 0); at CTB 64 the same body at the four quadrant
-    offsets in z-order, then the 64x64 2Nx2N candidate (`_candidate64`).
+    diagonal t (JAX package `step`, :844-1475), its decisions stored at
+    step `ty` of `ys` (t by default; the global step under halo).  At CTB
+    32 one CTB-32 body at offset (0, 0); at CTB 64 the same body at the
+    four quadrant offsets in z-order, then the 64x64 2Nx2N candidate
+    (`_candidate64`).
     Plane offsets are the JAX package's: a CTB row's planes start at
     (row) * NF, so one box of b_eff planes covers every slot of every
     frame."""
@@ -557,6 +611,7 @@ def _step(plan, dp, st, ys, t, impl):
     dev = st["recon"].device
     i32, f32 = torch.int32, torch.float32
     rate_evolve = plan["rate_evolve"]
+    ty = t if ty is None else ty
     ws = t * ctb
     # The step's working window, as a view: commits land in the planes.
     work = _box(st["recon"], 0, st["recon"].shape[0], 0, plan["PH"], ws,
@@ -807,21 +862,21 @@ def _step(plan, dp, st, ys, t, impl):
         return torch.where(use32, cost32f, cost_quads), cnt
 
     if ctb == 32:
-        _, cnt = ctb32(0, 0, {k: ys[k][t] for k in _KEYS32 if k in ys})
+        _, cnt = ctb32(0, 0, {k: ys[k][ty] for k in _KEYS32 if k in ys})
     else:
         csum64 = torch.zeros((b,), dtype=f32, device=dev)
         for q64 in range(4):
             c32, _ = ctb32((q64 >> 1) * 32, (q64 & 1) * 32,
-                           {k: ys[k][t, q64] for k in _KEYS32 if k in ys})
+                           {k: ys[k][ty, q64] for k in _KEYS32 if k in ys})
             csum64 = csum64 + c32
         mode64, rec64, qq64, use64 = _candidate64(
             plan, dp, st, t, p_cell, mode_bits_b(0, 0), csum64 + lam_s1,
             lam_s0)
         commit_rec(rec64, 0, 0, use64)
         commit_mode_fill(mode64, 0, 0, 8, use64)
-        ys["m64"][t] = mode64.to(torch.int8)
-        ys["q64"][t] = qq64.to(torch.int16)
-        ys["s64"][t] = (~use64).to(torch.int8)
+        ys["m64"][ty] = mode64.to(torch.int8)
+        ys["q64"][ty] = qq64.to(torch.int16)
+        ys["s64"][ty] = (~use64).to(torch.int8)
 
     if rate_evolve:
         fb4, fb8, fb16, fb32 = cnt
@@ -953,11 +1008,13 @@ def _cand64_tables(plan, device):
     return {k: torch.from_numpy(np.ascontiguousarray(np.stack(v, 1))).to(
         device) for k, v in tabs.items()}
 
-def run(plan, dp, frames_u8, impl="kernel"):
+def run(plan, dp, frames_u8, impl="kernel", group=None):
     """The device half of the encode: returns (recon (n_frames, H, W)
     uint8 numpy, ys dict of numpy per-step decisions, slot axis b_eff
     ordered (slot, frame)) of `frames_u8` (n_frames, H, W) (JAX package
-    :1477-1522)."""
+    :1477-1522).  A halo plan runs this rank's stripe of the global
+    schedule with the exchange over the process `group` (JAX
+    :1449-1471)."""
     dev = dp["mode_bits"].device
     ctb, OFF, W_sk = plan["ctb"], plan["OFF"], plan["W_sk"]
     sby, b_max, NF = plan["sby"], plan["b_max"], plan["n_frames"]
@@ -986,9 +1043,21 @@ def run(plan, dp, frames_u8, impl="kernel"):
         st["rs"] = torch.zeros((plan["n_planes"] * NF, 8, 16), dtype=i32,
                                device=dev)
     ys = _new_ys(plan, dev)
+    # One loop over the global schedule: without halo it is this plan's
+    # own (n_steps_run == n_steps, t_offset 0) and nothing is exchanged.
     with _exact_f32():
-        for t in range(plan["n_steps"]):
-            _step(plan, dp, st, ys, t, impl)
+        for t in range(plan["n_steps_run"]):
+            t_loc = t - plan["t_offset"]
+            if 0 <= t_loc < plan["n_steps"]:
+                _step(plan, dp, st, ys, t_loc, impl, t)
+            if plan["halo"]:
+                # The bottom plane, stored at x' = x + 2*ctb*(sby-1) + OFF,
+                # is read below at x' = x - 2*ctb + OFF.
+                recv = mesh.shift_down(st["recon"][ROW0 + sby - 1, :ctb],
+                                       group)
+                if recv is not None:
+                    st["recon"][0, :ctb] = torch.roll(recv, -2 * ctb * sby,
+                                                      dims=1)
     recon = torch.stack([torch.cat([
         st["recon"][(ROW0 + by) * NF + f, :ctb,
                     OFF + 2 * ctb * by:OFF + 2 * ctb * by + width]
@@ -1242,6 +1311,25 @@ def encode_arrays_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
     recon, ys = run(plan, dp, frames, impl=impl)
     return [(recon[f], _assemble_arrays(_frame_ys(ys, nf, f), h, w, ctb))
             for f in range(nf)]
+
+
+def encode_stripe_halo(stripe_uint8: np.ndarray, qp: int, group, *,
+                       policy: str = "regular", pnn=None, device="cuda"):
+    """This rank's stripe (H_s, W) of a frame split into the process
+    group's stripes of CTB rows, encoded on the global schedule with the
+    halo exchange (the JAX package's `_jitted_wavefront2(..., halo_axis,
+    n_tiles)`, CTB 32, NxN on, rate evolution off): (recon (H_s, W)
+    uint8, ys at the global steps), numpy.  Every rank of `group` calls it
+    at the same time."""
+    stripe = np.asarray(stripe_uint8)
+    h, w = stripe.shape
+    d, ranks = mesh.group_position(group)
+    plan, dp = _get_plan(h, w, qp, 1.0, CTB, True, False,
+                         torch.device(device), policy=policy,
+                         bundle=getattr(pnn, "bundle", pnn), halo=True,
+                         n_tiles=len(ranks), stripe=d)
+    recon, ys = run(plan, dp, stripe[None], group=group)
+    return recon[0], ys
 
 
 def encode_frame_wavefront2(frame_uint8: np.ndarray, qp: int, *,

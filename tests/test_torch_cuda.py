@@ -18,7 +18,10 @@ and the streaming encoder equal to single-frame encodes, and the port's
 decoder on the card.  Training: a step's loss and gradients on the card
 against the CPU, a resumed run equal to an uninterrupted one, the TF32 and
 cuDNN flags given back, and the FC kernel's forward after a step on the
-updated weights.
+updated weights.  Multi-rank paths: 2 Gloo ranks sharing the card run
+the tiled halo encoder (regular and switch, equal to the single-device
+encode, each rank launching the trial kernel, and under switch the
+merger) and a sharded training chunk (against the single-device chunk).
 Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -876,3 +879,95 @@ def test_kernel_forward_after_a_training_step_sees_the_new_weights(dev):
         want = pnn.forward_train(state.params, x, 8, True)
     assert not torch.equal(before, after)
     assert rel_err(after, want) <= 1e-4
+
+
+def _tiled_frame():
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:128, 0:64]
+    return np.clip(128 + 45 * np.sin(xx / 11.0) + 35 * np.cos(yy / 8.0)
+                   + rng.normal(0, 7, (128, 64)), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["regular", "switch"])
+def test_tiled_halo_v2_two_ranks_on_card_equal_single_device(dev, policy):
+    """Two Gloo ranks on the card: `encode_frame_tiled_halo_v2` equals
+    the single-device kernel-path encode (reconstruction, mode map,
+    stream) on both ranks; each rank launched the trial kernel, and under
+    switch the integer merger."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .parallel import mesh, tiled
+
+    bundle = zoo.load_bundle_npz(os.path.join(
+        REPO, "tests", "golden_torch", "w2_nn_random_bundle.npz")) \
+        if policy == "switch" else None
+    frame = _tiled_frame()
+    ranks = mesh.spawn_ranks(
+        tiled.encode_cases, 2, device="cuda:0", timeout=600,
+        args=([("encode_frame_tiled_halo_v2", frame, 37,
+                dict(policy=policy, pnn=bundle, serialize=True,
+                     device="cuda"))],))
+    single = wavefront2.encode_frame_wavefront2(frame, 37, policy=policy,
+                                                pnn=bundle, device=dev)
+    for results, launches in ranks:
+        got = results[0]
+        np.testing.assert_array_equal(got.reconstruction,
+                                      single.reconstruction)
+        np.testing.assert_array_equal(got.mode_map, single.mode_map)
+        assert got.bitstream == single.bitstream
+        assert sum(launches["unit_trial"].values()) > 0
+        assert (sum(launches["merger_int"].values()) > 0) == \
+            (policy == "switch")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,fc,axis", [(4, True, {"data": 2, "model": 1}),
+                                       (8, False, {"data": 1, "model": 2})],
+                         ids=["fc_w4_dp2", "conv_w8_tp2"])
+def test_sharded_chunk_on_card_matches_single_device(dev, w, fc, axis):
+    """A 3-step chunk over 2 Gloo ranks on the card against the
+    single-device chunk on the card: losses within 1e-5 relative, Adam
+    moments within 1e-5 of each leaf's max |value|, parameters so too at
+    all but 1e-4 of a leaf's entries and those within 2 K lr (Adam's
+    update amplifies the rounding of gradients of the order of its eps)."""
+    import math
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .models import training
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .parallel import mesh, sharded_training
+
+    k = 3
+    bs = [train_batch(w, 32, s) for s in range(k)]
+    a, l, t = (np.stack([b[i] for b in bs]) for i in range(3))
+    state = training.init_state(torch.Generator().manual_seed(0), w, fc,
+                                device=dev)
+    blob = training.state_to_numpy(state)
+    gen = torch.Generator().manual_seed(1)
+    got = mesh.spawn_ranks(
+        sharded_training.chunk_from_state, 2, device="cuda:0", timeout=600,
+        args=(axis, w, fc, blob, gen.get_state().numpy(), a, l, t, 86.8568),
+        kwargs=dict(device="cuda"))
+    ref_state, ref_losses = training.train_chunk(
+        state, gen, a, l, t, 86.8568, (0, 0), width_target=w,
+        is_fully_connected=fc, coeff_l2=1.0, coeff_grad=0.0,
+        random_masks=True)
+    ref = training.state_to_numpy(ref_state)
+    losses, blob_k = got[0]
+    np.testing.assert_allclose(losses, ref_losses.cpu().numpy(), rtol=1e-5,
+                               atol=0)
+    lr = float(training.learning_rate_schedule(w)(0))
+    pairs = [(blob_k["params"], ref["params"], True),
+             (blob_k["opt_state"][0].mu, ref["opt_state"][0].mu, False),
+             (blob_k["opt_state"][0].nu, ref["opt_state"][0].nu, False)]
+    for tree, want, is_params in pairs:
+        got_l, want_l = dict(_leaves(tree)), dict(_leaves(want))
+        for key, b in want_l.items():
+            b = np.asarray(b)
+            d = np.abs(np.asarray(got_l[key]) - b)
+            off = int((d > 1e-5 * np.abs(b).max()).sum())
+            if is_params:
+                assert off <= math.ceil(1e-4 * d.size), (key, off)
+                assert d.max() <= 2 * k * lr, key
+            else:
+                assert off == 0, key

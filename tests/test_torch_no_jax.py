@@ -5,7 +5,10 @@ calls) that name `jax`, `jaxlib`, `optax` or the JAX package, and fresh
 processes that run the CTB-64 Annex-B path and the loop-filtered decode,
 the v1 and quantize paths, the host RDO codec, and training (steps,
 checkpoints, a JAX-written checkpoint, export), and load none of them.  Each child
-runs torch on one thread, as the test files cap their own."""
+runs torch on one thread, as the test files cap their own.  Ranks spawned
+by `parallel/mesh.spawn_ranks` from this process, which has JAX loaded,
+run a tiled encode and a sharded training chunk and load none of them
+either."""
 
 import glob
 import json
@@ -261,3 +264,50 @@ def test_training_path_runs_without_jax(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == dict(bad=[], same=True, step=3, jstep=1, finite=True,
                        shapes=[[80, 1200], [80, 1200]])
+
+
+def test_the_scan_covers_the_multi_rank_and_evaluation_slice():
+    names = {os.path.relpath(f, os.path.join(REPO, PORT)) for f in FILES}
+    for mod in ("parallel/mesh.py", "parallel/tiled.py",
+                "parallel/sharded_training.py", "parallel/dryrun.py",
+                "utils/yuv.py", "utils/profiling.py",
+                "evaluation/hm_driver.py", "evaluation/maps.py",
+                "evaluation/stats.py", "cli/collect_stats_modes.py",
+                "cli/compare_maps_modes.py",
+                "cli/compare_rate_distortion.py"):
+        assert mod in names, mod
+
+
+def test_spawned_ranks_load_no_jax():
+    """Two Gloo ranks spawned from this process (JAX loaded here) run a
+    tiled halo encode and a sharded training chunk, then list what they
+    loaded: nothing of JAX, optax or the JAX package."""
+    import numpy as np
+    import torch
+
+    import jax  # noqa: F401  (the parent has JAX, the ranks must not)
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .models import training
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .parallel import mesh, sharded_training, tiled
+
+    rng = np.random.default_rng(0)
+    frame = rng.integers(0, 256, (64, 32), dtype=np.uint8)
+    blob = training.state_to_numpy(training.init_state(
+        torch.Generator().manual_seed(0), 4, True, device="cpu"))
+    batches = [rng.integers(0, 256, (1, 4) + s, dtype=np.uint8)
+               for s in ((4, 12, 1), (8, 4, 1), (4, 4, 1))]
+    prefixes = ("jax", "jaxlib", "optax", REF, PORT)
+    for then, args, kwargs in (
+            (tiled.encode_cases, ([("encode_frame_tiled_halo", frame, 32,
+                                    {"device": "cpu"})],), {}),
+            (sharded_training.chunk_from_state,
+             ({"data": 2, "model": 1}, 4, True, blob,
+              torch.Generator().get_state().numpy(), *batches, 90.0),
+             {"device": "cpu"})):
+        for loaded in mesh.spawn_ranks(mesh.loaded_modules, 2,
+                                       device="cpu",
+                                       args=(prefixes, then, args, kwargs),
+                                       timeout=300):
+            assert f"{PORT}.parallel.mesh" in loaded
+            assert [m for m in loaded if not m.startswith(PORT)] == []

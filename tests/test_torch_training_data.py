@@ -379,8 +379,13 @@ def test_train_pnn_cli_fixed_masks_directory(shard_dirs, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
-def test_train_pnn_cli_refuses_sharded_training(shard_dirs, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+def test_train_pnn_cli_refuses_sharded_training(shard_dirs, tmp_path, flag,
+                                                monkeypatch):
+    """`--dp 2` / `--tp 2` outside a process group of 2 ranks raise
+    ValueError naming both sizes, and write nothing."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="needs 2 ranks; the process "
+                                         "group has 1"):
         t_train.main(["4", "--shards", shard_dirs["w4"], "--mean", "90",
                       "--results-root", str(tmp_path), flag, "2",
                       "--device", "cpu"])
