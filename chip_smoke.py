@@ -50,7 +50,11 @@ printing one line with its seconds:
      NN policies (tests/golden_torch/w2_nn.json), against the digests
      captured from the JAX package; and at CTB 64 (rate evolution off) the
      smooth 64x128 and the natural 128x128 frame under regular, switch and
-     substitution, one frame a call (tests/golden_torch/w2_ctb64.json)
+     substitution, one frame a call (tests/golden_torch/w2_ctb64.json);
+     the batched transforms and quantiser on the card against their numpy
+     twins (n = 4 ... 32 and the DST, 16-bit blocks with the extremes and
+     the 9-bit chain, QP 22 and 37), and `predict_via_hevc_mode` against
+     `predict_one_mode_np`
   4  the 1080p regular encode through the kernel path: device and pack
      seconds, PSNR, bits, and trial launches per unit size, which must
      equal the trial calls of the step loop
@@ -117,7 +121,8 @@ printing one line with its seconds:
      |plain|), seconds per model; then a switch encode of the 128x128 natural frame
      with the port-quantized w4 / w8 refconv, w16 and w32 singles (trial
      and integer merger launches counted), decoded back by the port's
-     decoder
+     decoder; the six quantized models written by `save_quantized` and
+     read back by `load_quantized`, every array equal
   9  (runs before 8) the float prediction path on the card, per float
      single (w4/w8 FC, w4/w8 refconv, w16, w32): the forward on the
      natural frame's seeded contexts and the bf16 kernels against the JAX
@@ -569,6 +574,109 @@ def assert_equal(a, b, what, names=("cost", "best", "rec", "q", "counts")):
             raise AssertionError(f"{what}: {name} differs at {bad}")
 
 
+def save_quantized_checks(q_models):
+    """Phase 17: each quantized model written by `save_quantized` and read
+    back by `load_quantized`, every array equal in value, dtype and shape,
+    and `kind` equal."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch.models \
+        import pnn_q
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, q in q_models.items():
+            path = os.path.join(tmp, f"qpnn_{name}.npz")
+            pnn_q.save_quantized(path, q)
+            back = pnn_q.load_quantized(path)
+            bad = sorted(k for k in q if k != "kind" and not (
+                back[k].dtype == np.asarray(q[k]).dtype
+                and np.array_equal(back[k], np.asarray(q[k]))))
+            if set(back) != set(q) or back["kind"] != q["kind"] or bad:
+                raise AssertionError(f"save_quantized {name}: read back "
+                                     f"differs in {bad}")
+    say(f"save_quantized / load_quantized: the {len(q_models)} quantized "
+        f"models read back equal (every array's value, dtype and shape, and "
+        f"kind): {time.perf_counter() - t0:.2f} s")
+
+
+def port_api_checks(dev):
+    """Phase 3: the batched transforms and quantiser on the card against
+    their numpy twins, on seeded (B, n, n) blocks over the 16-bit range
+    (its extremes included) and on the chain of 9-bit residuals, for
+    n = 4, 8, 16, 32 and the 4x4 DST, at QP 22 and 37 and both slice
+    types; and `predict_via_hevc_mode` on the card against
+    `predict_one_mode_np` for w = 4 ... 32, all 35 modes."""
+    import torch
+
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import intra, transform
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    lo, hi = -32768, 32767
+    for n, dst in ((4, False), (4, True), (8, False), (16, False),
+                   (32, False)):
+        yy, xx = np.mgrid[0:n, 0:n]
+        full = np.concatenate([
+            rng.integers(lo, hi + 1, (64, n, n)), np.full((1, n, n), lo),
+            np.full((1, n, n), hi), np.where((yy + xx) % 2, lo, hi)[None]]
+        ).astype(np.int32)
+        resi = rng.integers(-255, 256, (64, n, n)).astype(np.int32)
+        xd = torch.from_numpy(full).to(dev)
+        checks = [
+            ("forward_transform", transform.forward_transform(
+                xd, use_dst=dst), transform.forward_transform_np(
+                    full, use_dst=dst)),
+            ("inverse_transform", transform.inverse_transform(
+                xd, use_dst=dst), transform.inverse_transform_np(
+                    full, use_dst=dst))]
+        for qp in (22, 37):
+            for intra_slice in (True, False):
+                checks.append((f"quantize QP {qp} intra={intra_slice}",
+                               transform.quantize(
+                                   xd, qp, is_intra_slice=intra_slice),
+                               transform.quantize_np(
+                                   full, qp, is_intra_slice=intra_slice)))
+            checks.append((f"dequantize QP {qp}",
+                           transform.dequantize(xd, qp),
+                           transform.dequantize_np(full, qp)))
+            c = transform.forward_transform(torch.from_numpy(resi).to(dev),
+                                            use_dst=dst)
+            chain = transform.inverse_transform(transform.dequantize(
+                transform.quantize(c, qp), qp), use_dst=dst)
+            c_np = transform.forward_transform_np(resi, use_dst=dst)
+            chain_np = transform.inverse_transform_np(transform.dequantize_np(
+                transform.quantize_np(c_np, qp), qp), use_dst=dst)
+            checks.append((f"9-bit chain QP {qp}", chain, chain_np))
+        for what, got, want in checks:
+            if got.device != xd.device or got.dtype != torch.int32 \
+                    or not np.array_equal(got.cpu().numpy(), want):
+                raise AssertionError(f"n={n} dst={dst} {what}: the card's "
+                                     f"result differs from the numpy twin")
+    say("forward_transform, inverse_transform, quantize, dequantize on the "
+        "card == their numpy twins: n = 4, 8, 16, 32 and the DST, 16-bit "
+        f"blocks with the extremes and the 9-bit chain, QP 22 and 37: "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    calls = 0
+    for w in (4, 8, 16, 32):
+        for h_ip, w_ip in ((w + 1, 2 * w + 1), (2 * w + 1, w + 1),
+                           (2 * w + 1, 2 * w + 1)):
+            pat = rng.integers(0, 256, (h_ip, w_ip, 1), dtype=np.uint8)
+            ref_top, ref_left = intra.pad_intra_pattern(pat, w)
+            for mode in range(35):
+                got = intra.predict_via_hevc_mode(pat, w, mode, device=dev)
+                want = intra.predict_one_mode_np(ref_top, ref_left, mode)
+                calls += 1
+                if got.shape != (w, w, 1) or not np.array_equal(
+                        got[..., 0], want.astype(np.uint8)):
+                    raise AssertionError(f"predict_via_hevc_mode w={w} "
+                                         f"pattern {h_ip}x{w_ip} mode "
+                                         f"{mode} != predict_one_mode_np")
+    say(f"predict_via_hevc_mode on the card == predict_one_mode_np: "
+        f"{calls} calls, w = 4 ... 32, three pattern sizes, 35 modes: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -829,6 +937,7 @@ def main():
                     f"({len(res.bitstream)} bytes, "
                     f"{int(np.sum(grids[13] == 0))} 64x64 leaves; trial "
                     f"launches {n_trials}, merger launches {n_mergers})")
+        port_api_checks(dev)
 
     # ---- phases 4-7: the 1080p paths ----
     frame = bench_frame()
@@ -1399,7 +1508,7 @@ def main():
         golden_q = quantize_golden.load(REPO)
         with open(MEAN_PKL, "rb") as f:
             mean_q = float(pickle.load(f))
-        quantized, q_inputs, q_launches = {}, {}, {}
+        quantized, q_inputs, q_launches, q_models = {}, {}, {}, {}
         # Every FC layer and float merger call of the quantize runs is
         # kept, held against its plain version after the run, and the first
         # of each shape is phase 8's input for its row.
@@ -1462,6 +1571,8 @@ def main():
                 f"{max(errs):.2e} of max |plain|")
             if name in QUANTIZE_SWITCH:
                 quantized[QUANTIZE_SWITCH[name]] = q
+            q_models[name] = q
+        save_quantized_checks(q_models)
         frame_q = golden_frames()["natural128"]
         bundle_q = nn_intra.PnnBundle(quantized, mean_q)
         reset_all_counts()

@@ -3,13 +3,14 @@
 The port's copy of the normative tables of the JAX package's
 `codec/cabac.py` that the rate model needs: the LPS range table, the
 renormalisation table, HM's 7-bit state transitions, the FAST_BIT_EST
-entropy table (15-bit fixed point per state) and the context init formula
-(HM-16.15 `ContextModel.cpp:56-117`, `TComCABACTables.cpp:43-118`), the
-decoding engine `CabacDecoder` (`TDecBinCoderCABAC.cpp:68-370`) the
-port's frame decoder reads streams with, and the encoding engine
-`CabacEncoder` (`TEncBinCoderCABAC.cpp`) the HM-syntax writer
-(`hm_encoder.py`) codes with.  The framework container's payload is coded
-by the native packer (`native/cabac_pack.cpp`).
+entropy table (15-bit fixed point per state; `estimate_bin_bits`) and the
+context init formula (HM-16.15 `ContextModel.cpp:56-117`,
+`TComCABACTables.cpp:43-118`), the decoding engine `CabacDecoder`
+(`TDecBinCoderCABAC.cpp:68-370`) the port's frame decoder reads streams
+with, and the encoding engine `CabacEncoder` (`TEncBinCoderCABAC.cpp`)
+the HM-syntax writer (`hm_encoder.py`) codes with.  The framework
+container's payload is coded by the native packer
+(`native/cabac_pack.cpp`).
 """
 
 from __future__ import annotations
@@ -209,6 +210,13 @@ class CabacDecoder:
                 self.bits_needed = -8
                 self.value += self._read_byte()
         return 0
+
+
+def estimate_bin_bits(state: int, bin_value: int) -> int:
+    """Fractional bits (15-bit fixed point) to code `bin_value` in `state`
+    (the JAX package's :348; HM ContextModel::getEntropyBits:
+    m_entropyBits[state ^ bin])."""
+    return int(ENTROPY_BITS[state ^ bin_value])
 
 
 EP_BIN_BITS = 32768  # one bypass bin = 1.0 bit in 15-bit fixed point

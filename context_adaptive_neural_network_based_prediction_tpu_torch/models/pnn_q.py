@@ -1,8 +1,9 @@
 """Quantized normative PNN inference: the codec's deterministic NN path.
 
 The port of the integer forward of the JAX package's `models/pnn_q.py`
-(`load_quantized` :432, `_requant` :264, `_quant_in` :275, `_conv_q` :283,
-`_conv_transpose_q` :297, `forward_q` :327, `predict_pixels_q` :412).  A
+(`save_quantized` :428, `load_quantized` :432, `_requant` :264,
+`_quant_in` :275, `_conv_q` :283, `_conv_transpose_q` :297, `forward_q`
+:327, `predict_pixels_q` :412).  A
 frozen model is a dict of numpy arrays (int16 weights, int32 biases,
 float32 per-channel multipliers and integer activation caps);
 `params_from_numpy` carries it onto a device.
@@ -55,6 +56,16 @@ ACT_CAP = 2047          # max activation magnitude (int16 payload)
 W_CAP = 511             # max weight magnitude
 BUDGET = 1 << 30        # per-contraction int32 budget (bias gets the rest)
 CALIB_MARGIN = 1.10     # headroom over calibration max activations
+
+
+def save_quantized(path: str, q: dict) -> None:
+    """Writes a quantized model dict (`quantize_pnn`'s, or one read by
+    `load_quantized`) as the compressed `.npz` the NN policies load (the
+    JAX package's :428): every value as a numpy array, `kind` as a 0-d
+    string array.  A tensor value is copied to the host first."""
+    np.savez_compressed(path, **{
+        k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+        else np.asarray(v) for k, v in q.items()})
 
 
 def load_quantized(path: str) -> dict:

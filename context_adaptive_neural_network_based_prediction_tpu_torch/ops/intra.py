@@ -13,6 +13,9 @@ and exact int32 arithmetic, bit for bit the JAX package's;
 `predict_one_mode_np` (:217) predicts one mode of one block in numpy, the
 decoders' per-TU form, and `predict_all_modes_np` (:172) all 35 of N
 blocks in numpy, the host RDO encoder's per-PU sweep.
+`pad_intra_pattern` (:286) and `predict_via_hevc_mode` (:310) are the
+reference simulator's single-block, single-mode prediction from a partial
+L-pattern.
 Reference layout: ref_top[n] = [corner, top_0, ..., top_{2w-1}] and
 ref_left[n] = [corner, left_0, ..., left_{2w-1}] (length 2w + 1 each).
 """
@@ -246,6 +249,43 @@ def predict_all_modes(ref_top, ref_left, *, filtered_edges: bool = True):
     planar = (hor + ver) >> (s + 1)
     return torch.cat([planar[:, None], dc_blk[:, None], ang],
                      dim=1).to(torch.int32)
+
+
+def pad_intra_pattern(intra_pattern_uint8: np.ndarray, size_block: int):
+    """Expands a partial L-pattern to full (ref_top, ref_left) (2w+1,)
+    int32 numpy arrays by edge replication (the JAX package's :286;
+    `extracted_hevc_intraprediction.cpp:30-84`).
+
+    `intra_pattern_uint8` is (h_ip, w_ip, 1) or (h_ip, w_ip), the L stored
+    as in the reference simulator: row 0 the above references (corner
+    first), column 0 the left ones, with h_ip and w_ip in [w+1, 2w+1].  The
+    last pixel of each arm replicates outward to length 2w+1."""
+    w = size_block
+    h_ip, w_ip = intra_pattern_uint8.shape[:2]
+    if not (w + 1 <= h_ip <= 2 * w + 1) or not (w + 1 <= w_ip <= 2 * w + 1):
+        raise ValueError("intra pattern dims must lie in [w+1, 2w+1].")
+    pat = intra_pattern_uint8[..., 0] if intra_pattern_uint8.ndim == 3 \
+        else intra_pattern_uint8
+    ref_top = np.full(2 * w + 1, pat[0, w_ip - 1], dtype=np.int32)
+    ref_top[:w_ip] = pat[0, :]
+    ref_left = np.full(2 * w + 1, pat[h_ip - 1, 0], dtype=np.int32)
+    ref_left[:h_ip] = pat[:, 0]
+    return ref_top, ref_left
+
+
+def predict_via_hevc_mode(intra_pattern_uint8: np.ndarray, width_target: int,
+                          mode: int, device="cuda") -> np.ndarray:
+    """Single-block, single-mode prediction from a partial L-pattern (the
+    JAX package's :310, reference `interface.pyx` parity): the pattern is
+    padded (`pad_intra_pattern`) and predicted by `predict_all_modes` on
+    `device`.  Returns a (w, w, 1) uint8 numpy block."""
+    if mode < 0 or mode > 34:
+        raise ValueError("mode must be in [0, 34].")
+    ref_top, ref_left = pad_intra_pattern(intra_pattern_uint8, width_target)
+    dev = torch.device(device)
+    preds = predict_all_modes(torch.from_numpy(ref_top[None]).to(dev),
+                              torch.from_numpy(ref_left[None]).to(dev))
+    return preds[0, mode].cpu().numpy().astype(np.uint8)[..., None]
 
 
 def predict_best_mode(ref_top, ref_left, targets):

@@ -12,7 +12,9 @@ decoder's form: one block, from a grid of the 4x4 units reconstructed so
 far.  `filter_reference_samples` is the [1 2 1] / strong smoothing
 (`TComPattern.cpp:196-330`) and `use_filtered_for_mode` its per-mode
 choice, with `FILTER_THRESHOLD` `m_aucIntraFilter` for luma
-(`TComPrediction.cpp:43-56`).
+(`TComPrediction.cpp:43-56`).  `build_reference_samples` runs the whole
+chain for one TB (availability, fill, filter), and `unit_grid_shape`
+gives the shape of its `unit_coded` grid.
 """
 
 from __future__ import annotations
@@ -25,15 +27,23 @@ UNIT = 4  # availability granularity in samples
 FILTER_THRESHOLD = {4: 10, 8: 7, 16: 1, 32: 0, 64: 10}
 
 
+def unit_grid_shape(height: int, width: int):
+    """(rows, columns) of the 4x4-unit availability grid of a picture (the
+    JAX package's :34)."""
+    return (height + UNIT - 1) // UNIT, (width + UNIT - 1) // UNIT
+
+
 def neighbor_unit_flags(order4: np.ndarray, y, x, n: int, height: int,
                         width: int, unit: int = UNIT) -> np.ndarray:
     """Availability flags in HM line order of n x n blocks at (y, x).
 
-    The port's vectorised copy of the JAX package's `neighbor_unit_flags`
-    (`ops/reference_samples.py:38`): `y`, `x` are integer arrays of block
-    origins and `order4` the coding order of every 4x4 unit; a unit is
-    available iff it lies inside the picture and precedes the block in
-    coding order.  Returns bool (*y.shape, 2 * 2n/unit + 1) in the order
+    The encoder's vectorised form of the JAX package's
+    `neighbor_unit_flags` (`ops/reference_samples.py:38`), with another
+    signature: `y`, `x` are integer arrays of block origins and `order4`
+    the coding order of every 4x4 unit; a unit is available iff it lies
+    inside the picture and precedes the block in coding order.  The
+    counterpart with the JAX function's signature (one block, a grid of
+    the units coded so far) is `coded_unit_flags`.  Returns bool (*y.shape, 2 * 2n/unit + 1) in the order
     [left + below-left units bottom -> top, corner, above + above-right
     units left -> right]."""
     mine = order4[y // 4, x // 4]
@@ -206,3 +216,21 @@ def use_filtered_for_mode(mode: int, n: int) -> bool:
         return False
     diff = min(abs(mode - 10), abs(mode - 26))
     return diff > FILTER_THRESHOLD[n]
+
+
+def build_reference_samples(recon: np.ndarray, x: int, y: int, n: int,
+                            unit_coded: np.ndarray,
+                            *, strong_intra_smoothing: bool = True):
+    """The whole chain for one n x n luma TB at (x, y) (the JAX package's
+    :198): availability from `unit_coded` (the bool `unit_grid_shape` grid
+    of the 4x4 units reconstructed so far, `coded_unit_flags`), HM's fill
+    from `recon` (H, W), then the [1 2 1] or strong smoothing.
+
+    Returns (ref_top, ref_left, ref_top_filtered, ref_left_filtered),
+    (2n+1,) int32 each."""
+    height, width = recon.shape
+    flags = coded_unit_flags(unit_coded, x, y, n, height, width)
+    ref_top, ref_left = fill_reference_samples(recon, x, y, n, flags)
+    f_top, f_left = filter_reference_samples(
+        ref_top, ref_left, n, strong_intra_smoothing=strong_intra_smoothing)
+    return ref_top, ref_left, f_top, f_left

@@ -1,13 +1,17 @@
-"""HEVC integer transform matrices and quantiser scales (numpy).
+"""HEVC integer transforms (DCT-II 4-32, DST-VII 4) and scalar quantisation.
 
-The port's copy of the constants of the JAX package's `ops/transform.py`
-that the wavefront encoder's tables need: the DST-VII 4x4 pair, the integer
-DCT-II of sizes 4-32 (6-bit and 14-bit high-precision forward), and the
-quantiser scales.  The encoder's transforms run inside the fused unit
-trial (`ops/unit_fused.py`, `ops/csrc/unit_trial.cu`); the host codec's
-transforms and quantisers are the numpy twins here (`forward_transform_np`,
-`quantize_np`, `dequantize_np`, `inverse_transform_np`, exact integer
-arithmetic).
+The port of the JAX package's `ops/transform.py`: the DST-VII 4x4 pair,
+the integer DCT-II of sizes 4-32 (6-bit and 14-bit high-precision
+forward), the quantiser scales, and HM's batched transforms and scalar
+(de)quantiser in two forms.  `forward_transform`, `inverse_transform`,
+`quantize` and `dequantize` take (B, n, n) integer tensors and compute on
+the tensor's device (a numpy array goes to `device`, the card by default);
+their matrix products run in float64 (`_product`), since CUDA has no
+int64 product, and every sum stays below 2^53, so they are exact.  The
+numpy twins (`forward_transform_np`, `quantize_np`, `dequantize_np`,
+`inverse_transform_np`, int64) are what the host codec calls per TU.  The
+wavefront encoder's transforms run inside the fused unit trial
+(`ops/unit_fused.py`, `ops/csrc/unit_trial.cu`).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 BIT_DEPTH = 8
@@ -112,7 +117,7 @@ def forward_transform_np(residuals: np.ndarray, *, use_dst: bool = False,
 
 def inverse_transform_np(coeffs: np.ndarray, *, use_dst: bool = False,
                          bit_depth: int = BIT_DEPTH) -> np.ndarray:
-    """Numpy twin of `inverse_transform`."""
+    """Numpy twin of `inverse_transform` (int64, on the host)."""
     n = coeffs.shape[-1]
     t = (DST4 if use_dst else np.asarray(dct_matrix(n), np.int32)).astype(np.int64)
     shift1 = TRANSFORM_MATRIX_SHIFT + 1
@@ -142,7 +147,7 @@ def quantize_np(coeffs: np.ndarray, qp: int, *, is_intra_slice: bool = True,
 
 
 def dequantize_np(qcoeffs: np.ndarray, qp: int, *, bit_depth: int = BIT_DEPTH) -> np.ndarray:
-    """Numpy twin of `dequantize`."""
+    """Numpy twin of `dequantize` (int64, on the host)."""
     n = qcoeffs.shape[-1]
     log2n = n.bit_length() - 1
     per, rem = qp // 6, qp % 6
@@ -155,3 +160,125 @@ def dequantize_np(qcoeffs: np.ndarray, qp: int, *, bit_depth: int = BIT_DEPTH) -
         c = (q * scale) << (-right_shift)
     lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
     return np.clip(c, lo, hi).astype(np.int32)
+
+
+# ------------------------------------------------ batched, on a device --
+
+def _product(a, b):
+    """Exact integer matrix product through float64 (CUDA has no int64
+    product; every sum of products here stays far below 2^53); int64
+    out."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.int64)
+
+
+def _as_int64(x, device) -> torch.Tensor:
+    """(B, n, n) integers as an int64 tensor: a tensor stays on its device,
+    a numpy array goes to `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(torch.device(device))
+    return x.to(torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_on(n: int, use_dst: bool, forward: bool, device: str):
+    """The transform matrix (int64) on `device`: the 14-bit forward or the
+    6-bit inverse, DST-VII 4x4 or DCT-II."""
+    if forward:
+        t = DST4_FWD if use_dst else dct_matrix(n, True)
+    else:
+        t = DST4 if use_dst else dct_matrix(n)
+    return torch.from_numpy(np.asarray(t, np.int64)).to(device)
+
+
+def _check_dst(n: int, use_dst: bool):
+    if use_dst and n != 4:
+        raise ValueError("DST only applies to 4x4 TUs.")
+
+
+def forward_transform(residuals, *, use_dst: bool = False,
+                      bit_depth: int = BIT_DEPTH, device="cuda"):
+    """HM's forward transform of (B, n, n) integer residuals -> (B, n, n)
+    int32 coefficients on the residuals' device (the JAX package's :193),
+    with the 14-bit high-precision matrices; `use_dst` selects the DST-VII
+    (HM: luma intra 4x4 TUs only; other sizes raise).
+
+    Exact (equal to `forward_transform_np`) over HM's 16-bit residual
+    range [-32768, 32767].  The JAX package's version sums in int32 and
+    agrees where its sums fit: |r| < 2^(17 - log2 n) (32768, 16384, 8192,
+    4096 for n = 4 ... 32), which holds every residual of 8-bit video;
+    beyond it the JAX package's sums wrap."""
+    n = residuals.shape[-1]
+    _check_dst(n, use_dst)
+    r = _as_int64(residuals, device)
+    t = _matrix_on(n, use_dst, True, str(r.device))
+    log2n = n.bit_length() - 1
+    shift1 = log2n + bit_depth + FWD_MATRIX_SHIFT - MAX_TR_DYNAMIC_RANGE
+    shift2 = log2n + FWD_MATRIX_SHIFT
+    add1 = (1 << (shift1 - 1)) if shift1 > 0 else 0
+    # A[b, i, k] = sum_n R[b, i, n] T[k, n]; C[b, k, l] = sum_i T[k, i] A[b, i, l].
+    a = (_product(r, t.T) + add1) >> shift1
+    c = (_product(t, a) + (1 << (shift2 - 1))) >> shift2
+    return c.to(torch.int32)
+
+
+def inverse_transform(coeffs, *, use_dst: bool = False,
+                      bit_depth: int = BIT_DEPTH, device="cuda"):
+    """HM's inverse transform of (B, n, n) integer coefficients -> (B, n, n)
+    int32 residuals on the coefficients' device (the JAX package's :204):
+    the first stage clipped to 16 bits, the result to HM's Pel range.
+
+    Exact, and equal to the JAX package's int32 version and to
+    `inverse_transform_np`, over HM's 16-bit coefficient range
+    [-32768, 32767] (every sum below 2^27)."""
+    n = coeffs.shape[-1]
+    _check_dst(n, use_dst)
+    c = _as_int64(coeffs, device)
+    t = _matrix_on(n, use_dst, False, str(c.device))
+    shift1 = TRANSFORM_MATRIX_SHIFT + 1
+    shift2 = (TRANSFORM_MATRIX_SHIFT + MAX_TR_DYNAMIC_RANGE - 1) - bit_depth
+    add2 = (1 << (shift2 - 1)) if shift2 > 0 else 0
+    lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
+    # E[b, i, l] = sum_k T[k, i] C[b, k, l]; R[b, i, n] = sum_k E[b, i, k] T[k, n].
+    e = torch.clamp((_product(t.T, c) + (1 << (shift1 - 1))) >> shift1,
+                    lo, hi)
+    r = (_product(e, t) + add2) >> shift2
+    return torch.clamp(r, -32768, 32767).to(torch.int32)
+
+
+def quantize(coeffs, qp: int, *, is_intra_slice: bool = True,
+             bit_depth: int = BIT_DEPTH, device="cuda"):
+    """HM's scalar quantiser (no RDOQ) of (B, n, n) integer coefficients ->
+    int32 levels clipped to 16 bits, on the coefficients' device (the JAX
+    package's :322).  Computed in int64: equal to `quantize_np` for any
+    int32 input, and to the JAX package's int32 version over HM's 16-bit
+    coefficient range [-32768, 32767]."""
+    n = coeffs.shape[-1]
+    log2n = n.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    qbits = QUANT_SHIFT + per + transform_shift(log2n, bit_depth)
+    add = (171 if is_intra_slice else 85) << (qbits - 9)
+    c = _as_int64(coeffs, device)
+    q = torch.sign(c) * ((c.abs() * QUANT_SCALES[rem] + add) >> qbits)
+    lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
+    return torch.clamp(q, lo, hi).to(torch.int32)
+
+
+def dequantize(qcoeffs, qp: int, *, bit_depth: int = BIT_DEPTH,
+               device="cuda"):
+    """HM's dequantiser of (B, n, n) integer levels -> int32 coefficients
+    clipped to 16 bits, on the levels' device (the JAX package's :327).
+    Computed in int64: equal to `dequantize_np`, and to the JAX package's
+    int32 version over HM's 16-bit level range [-32768, 32767]."""
+    n = qcoeffs.shape[-1]
+    log2n = n.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    right_shift = IQUANT_SHIFT - (transform_shift(log2n, bit_depth) + per)
+    scale = INV_QUANT_SCALES[rem]
+    q = _as_int64(qcoeffs, device)
+    if right_shift > 0:
+        c = (q * scale + (1 << (right_shift - 1))) >> right_shift
+    else:
+        c = (q * scale) << (-right_shift)
+    lo, hi = -(1 << MAX_TR_DYNAMIC_RANGE), (1 << MAX_TR_DYNAMIC_RANGE) - 1
+    return torch.clamp(c, lo, hi).to(torch.int32)

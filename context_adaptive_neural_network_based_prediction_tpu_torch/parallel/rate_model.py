@@ -5,9 +5,10 @@ The port's copy of the JAX package's `parallel/rate_model.py`: fractional
 (`contexts.make_context_states` + `cabac.ENTROPY_BITS`, HM's FAST_BIT_EST
 estimator, TEncSearch.cpp:2264-2527).  Decisions steered by these tables
 are serialized by the exact CABAC coder, so the approximation only affects
-choices, never decodability.  (The JAX package can also read an
-experimental calibration snapshot when `CANP_TPU_CTX_CALIBRATION=1`; it is
-off by default and the port does not carry it.)
+choices, never decodability.  (The JAX package can also start them from
+an experimental snapshot of evolved context states when
+`CANP_TPU_CTX_CALIBRATION=1`; it steers worse than HM's initial states
+there and is off by default, so the port does not carry it.)
 
 Tables per TU size: sig_coeff_flag bits per scan position (exact context,
 averaged over the 4 neighbour-CG patterns), last-significant-XY bits,

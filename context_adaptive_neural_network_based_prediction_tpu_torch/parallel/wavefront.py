@@ -67,6 +67,7 @@ from ..codec import encoder as enc_mod
 from ..codec import sao as sao_mod
 from ..ops import intra, transform
 from ..ops.reference_samples import DC_FILL, FILTER_THRESHOLD
+from ..ops.transform import _product
 from . import mesh
 
 BLOCK_SIZES = (4, 8, 16, 32)
@@ -166,8 +167,7 @@ def _build_plan(height: int, width: int, n: int, qp: int, n_frames: int,
         t_mat=transform.dct_matrix(n).astype(np.float64),
         shift1=log2n + 8 + 6 - 15, shift2=log2n + 6,
         qscale=transform.QUANT_SCALES[rem], qbits=qbits,
-        qadd=171 << (qbits - 9), iq_shift=6 - (tshift + per),
-        iq_scale=transform.INV_QUANT_SCALES[rem],
+        qadd=171 << (qbits - 9),
         lam=np.array(lam, np.float32), rate=rate_table(),
         mode_bits=mode_bits_table())
 
@@ -237,13 +237,6 @@ def _filter(ref_top, ref_left, n):
     return f_top, f_left
 
 
-def _product(a, b):
-    """Exact integer matrix product through float64 (every sum of products
-    here stays far below 2^53); int64 out."""
-    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
-        torch.int64)
-
-
 def _step(plan, dp, st, t):
     """One wavefront step: every slot's block tried in all 35 modes, the
     cheapest committed (JAX `step` / `encode_block` :187-277)."""
@@ -264,14 +257,7 @@ def _step(plan, dp, st, t):
     coeff = (_product(tm, a) + (1 << (plan["shift2"] - 1))) >> plan["shift2"]
     mag = (coeff.abs() * plan["qscale"] + plan["qadd"]) >> plan["qbits"]
     q = torch.sign(coeff) * mag
-    iq = plan["iq_shift"]
-    if iq > 0:
-        deq = (q * plan["iq_scale"] + (1 << (iq - 1))) >> iq
-    else:
-        deq = (q * plan["iq_scale"]) << (-iq)
-    deq = torch.clamp(deq, -32768, 32767)
-    e = torch.clamp((_product(tm.T, deq) + (1 << 6)) >> 7, -32768, 32767)
-    resi = torch.clamp((_product(e, tm) + (1 << 11)) >> 12, -32768, 32767)
+    resi = transform.inverse_transform(transform.dequantize(q, plan["qp"]))
     rec = torch.clamp(preds + resi, 0, 255)
     sse = ((rec - orig) ** 2).sum((2, 3)).to(torch.float32)
     coeff_bits = dp["rate"][q.abs()].to(torch.float64).sum((2, 3)).to(

@@ -94,6 +94,8 @@ from . import mesh, rate_model
 
 CTB = 32
 NN_SIZES = (4, 8, 16, 32)   # unit sizes a PNN can serve at CTB 32
+PADW = 32           # right margin of the skewed planes (NN context slices)
+PNNS_MODE = enc_mod.PNNS_MODE   # the switch policy's PNN mode (mode 35)
 ROW0 = 1            # plane 0 is the (zero) halo plane above the first row
 RS_TMIN = 32        # rate-state bins needed before the live estimate counts
 
@@ -353,8 +355,8 @@ def _build_wavefront2(height: int, width: int, qp: int,
     # planes up (x' -= 2*ctb) and 2n left stay in bounds at t=0; PH: plane
     # height with 32 pad rows; WIN: a step's working window.
     OFF = 2 * ctb + 64
-    W_sk = n_steps * ctb + OFF + 32
-    WIN = OFF + ctb + 32
+    W_sk = n_steps * ctb + OFF + PADW
+    WIN = OFF + ctb + PADW
     PH = ctb + 32
     n_planes = ROW0 + sby + b_max - 1       # per-frame by-planes
     cu8 = ctb // 8
@@ -965,7 +967,7 @@ def _candidate64(plan, dp, st, t, p_cell, mbits, split_cost, lam_s0):
     if plan["policy"] == "substitution" and 32 in plan["nn_widths"]:
         cost64 = torch.where(ids == 18, big, cost64)
     if M == 36:
-        cost64 = torch.where(ids == enc_mod.PNNS_MODE, big, cost64)
+        cost64 = torch.where(ids == PNNS_MODE, big, cost64)
     best = torch.argmin(cost64, dim=1)          # the first minimum
     rows = torch.arange(b, device=dev)
     use64 = cost64[rows, best] + lam_s0 < split_cost

@@ -22,6 +22,8 @@ updated weights.  Multi-rank paths: 2 Gloo ranks sharing the card run
 the tiled halo encoder (regular and switch, equal to the single-device
 encode, each rank launching the trial kernel, and under switch the
 merger) and a sharded training chunk (against the single-device chunk).
+The batched transforms and quantiser, `predict_via_hevc_mode` and
+`ycbcr_to_rgb` on CUDA tensors give the CPU's results.
 Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -971,3 +973,67 @@ def test_sharded_chunk_on_card_matches_single_device(dev, w, fc, axis):
                 assert d.max() <= 2 * k * lr, key
             else:
                 assert off == 0, key
+
+
+def transform_blocks(n, seed, lo=-32768, hi=32767):
+    """Seeded (B, n, n) int32 blocks over the 16-bit range, its extremes
+    included."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    return np.concatenate([
+        rng.integers(lo, hi + 1, (16, n, n)), np.full((1, n, n), lo),
+        np.full((1, n, n), hi), np.where((yy + xx) % 2, lo, hi)[None]]
+    ).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dst", [(4, False), (4, True), (8, False),
+                                   (16, False), (32, False)],
+                         ids=["dct4", "dst4", "dct8", "dct16", "dct32"])
+def test_transforms_on_card_equal_cpu(dev, n, dst):
+    """The batched transforms and quantiser on CUDA tensors give the CPU's
+    results (float64 products on the card, int64 elsewhere), at QP 0-51
+    and both slice types."""
+    x = torch.from_numpy(transform_blocks(n, 7 * n + dst))
+    xd = x.to(dev)
+    for fn in (transform.forward_transform, transform.inverse_transform):
+        got = fn(xd, use_dst=dst)
+        assert got.device == xd.device and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), fn(x, use_dst=dst)), fn.__name__
+    for qp in range(52):
+        for intra in (True, False):
+            assert torch.equal(
+                transform.quantize(xd, qp, is_intra_slice=intra).cpu(),
+                transform.quantize(x, qp, is_intra_slice=intra)), (qp, intra)
+        assert torch.equal(transform.dequantize(xd, qp).cpu(),
+                           transform.dequantize(x, qp)), qp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_predict_via_hevc_mode_on_card_equals_cpu(dev, w):
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import intra
+
+    rng = np.random.default_rng(w)
+    for h_ip, w_ip in ((w + 1, w + 1), (2 * w + 1, w + 1), (w + 1, 2 * w + 1),
+                       (2 * w + 1, 2 * w + 1)):
+        pat = rng.integers(0, 256, (h_ip, w_ip, 1), dtype=np.uint8)
+        for mode in range(35):
+            got = intra.predict_via_hevc_mode(pat, w, mode, device=dev)
+            want = intra.predict_via_hevc_mode(pat, w, mode, device="cpu")
+            np.testing.assert_array_equal(got, want, err_msg=f"mode {mode}")
+
+
+@pytest.mark.cuda
+def test_ycbcr_to_rgb_on_card_equals_numpy(dev):
+    from context_adaptive_neural_network_based_prediction_tpu_torch.utils \
+        import color
+
+    cb, cr = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    for y in (0, 16, 128, 235, 255):
+        img = np.stack([np.full_like(cb, y), cb, cr], 2).astype(np.uint8)
+        got = color.ycbcr_to_rgb(torch.from_numpy(img).to(dev))
+        assert got.device == dev and got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      color.ycbcr_to_rgb(img))
