@@ -23,6 +23,7 @@ import threading
 import numpy as np
 
 from .. import _build_dir
+from ..utils.profiling import span
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -88,7 +89,7 @@ def pack_grid_payload(modes: np.ndarray, qcoeffs: np.ndarray, n: int,
     """CABAC payload for a uniform-grid frame (no header): modes (nby,
     nbx), qcoeffs (nby, nbx, n, n), every block a CTU of size n with one
     2Nx2N PU and one TU, no sign hiding (`pack_grid`,
-    `native/cabac_pack.cpp:553`)."""
+    `native/cabac_pack.cpp:553`, span `pack.native`)."""
     modes = np.ascontiguousarray(modes, dtype=np.int32)
     qcoeffs = np.ascontiguousarray(qcoeffs, dtype=np.int32)
     nby, nbx = modes.shape
@@ -97,8 +98,9 @@ def pack_grid_payload(modes: np.ndarray, qcoeffs: np.ndarray, n: int,
     lib = load_library()
     cap = max(qcoeffs.size * 4 + 1024, 1 << 16)
     out = np.empty(cap, dtype=np.uint8)
-    size = lib.pack_grid(modes.ctypes.data, qcoeffs.ctypes.data, nby, nbx,
-                         n, qp, out.ctypes.data, cap)
+    with span("pack.native"):
+        size = lib.pack_grid(modes.ctypes.data, qcoeffs.ctypes.data, nby,
+                             nbx, n, qp, out.ctypes.data, cap)
     if size < 0:
         raise RuntimeError(f"pack_grid failed with code {size}")
     return bytes(out[:size])
@@ -108,12 +110,16 @@ def serialize_grid(modes: np.ndarray, qcoeffs: np.ndarray, *, width: int,
                    height: int, n: int, qp: int) -> bytes:
     """The container stream of a uniform-grid frame: the header (CTB = n,
     regular policy, no sign hiding, no loop filters) and
-    `pack_grid_payload`."""
+    `pack_grid_payload`.  Span `pack.grid` (children `pack.header` and
+    `pack.native`)."""
     from .encoder import stream_header
 
-    return stream_header(
-        width=width, height=height, qp=qp, policy="regular", ctu_size=n,
-        sign_hiding=False) + pack_grid_payload(modes, qcoeffs, n, qp)
+    with span("pack.grid"):
+        with span("pack.header"):
+            header = stream_header(
+                width=width, height=height, qp=qp, policy="regular",
+                ctu_size=n, sign_hiding=False)
+        return header + pack_grid_payload(modes, qcoeffs, n, qp)
 
 
 def pack_tree_payload(grids, *, width: int, height: int, qp: int,

@@ -68,6 +68,8 @@ from ..codec import sao as sao_mod
 from ..ops import intra, transform
 from ..ops.reference_samples import DC_FILL, FILTER_THRESHOLD
 from ..ops.transform import _product
+from ..utils import profiling
+from ..utils.profiling import count, setup_span, span
 from . import mesh
 
 BLOCK_SIZES = (4, 8, 16, 32)
@@ -185,16 +187,20 @@ _PLAN_CACHE_MAX = 4
 def _get_plan(height, width, n, qp, n_frames, device, top=0,
               has_halo=False):
     """The cached (plan, device plan) of an encode configuration."""
-    key = (height, width, n, qp, n_frames, str(torch.device(device)), top,
-           has_halo)
-    hit = _PLAN_CACHE.get(key)
-    if hit is None:
-        plan = _build_plan(height, width, n, qp, n_frames, top, has_halo)
-        hit = (plan, _device_plan(plan, device))
+    with span("v1.plan"):
+        key = (height, width, n, qp, n_frames, str(torch.device(device)),
+               top, has_halo)
+        hit = _PLAN_CACHE.get(key)
+        if hit is not None:
+            return hit
+        with setup_span("v1.plan_build"):
+            plan = _build_plan(height, width, n, qp, n_frames, top,
+                               has_halo)
+            hit = (plan, _device_plan(plan, device))
         _PLAN_CACHE[key] = hit
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
             _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
-    return hit
+        return hit
 
 
 def _refs(plan, dp, raw, t):
@@ -279,42 +285,63 @@ def run(plan, dp, frames_u8, group=None):
     nby, nbx) int32, qcoeffs (NF, nby, nbx, n, n) int32), numpy (JAX
     `run` :290-303).  With a process `group` (halo mode, a plan with
     `top` = 1), this rank's stripe of the global schedule, its bottom row
-    sent down after every global step."""
+    sent down after every global step.
+
+    Spans: `v1.upload` (the frames to the device as int32 and the state
+    tensors), `v1.steps` (the host issuing the step loop; once the
+    card's launch queue is full the host waits for the card inside it,
+    so at a large batch it reads card time), `v1.drain` (only while
+    tracing: the wait for what is still queued, before the readback),
+    `v1.readback` (the three copies to the host)."""
     dev = dp["rate"].device
     h, w, n, nf = plan["height"], plan["width"], plan["n"], plan["n_frames"]
     top = plan["top"]
     nbx, nby = plan["nbx"], plan["nby"]
-    frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(
-        device=dev, dtype=torch.int32)
-    if tuple(frames.shape) != (nf, h, w):
-        raise ValueError(f"frames {tuple(frames.shape)} != plan "
-                         f"{(nf, h, w)}")
-    frame = torch.zeros((nf, top + h + n, w), dtype=torch.int32, device=dev)
-    frame[:, top:top + h] = frames
-    st = dict(
-        frame=frame.view(-1),
-        recon=torch.zeros(nf * plan["plane"], dtype=torch.int32, device=dev),
-        modes=torch.full((nf * plan["cells"],), -1, dtype=torch.int32,
-                         device=dev),
-        qcoeffs=torch.zeros((nf * plan["cells"], n * n), dtype=torch.int32,
-                            device=dev))
+    with span("v1.upload"):
+        frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(
+            device=dev, dtype=torch.int32)
+        if tuple(frames.shape) != (nf, h, w):
+            raise ValueError(f"frames {tuple(frames.shape)} != plan "
+                             f"{(nf, h, w)}")
+        frame = torch.zeros((nf, top + h + n, w), dtype=torch.int32,
+                            device=dev)
+        frame[:, top:top + h] = frames
+        st = dict(
+            frame=frame.view(-1),
+            recon=torch.zeros(nf * plan["plane"], dtype=torch.int32,
+                              device=dev),
+            modes=torch.full((nf * plan["cells"],), -1, dtype=torch.int32,
+                             device=dev),
+            qcoeffs=torch.zeros((nf * plan["cells"], n * n),
+                                dtype=torch.int32, device=dev))
     # One loop over the global schedule: without a group it is this
     # plan's own (one stripe, offset 0) and nothing is exchanged.
     d, ranks = (0, [0]) if group is None else mesh.group_position(group)
     offset = 2 * plan["nby"] * d
     rows = st["recon"].view(nf, top + h + n, w)
-    for t in range(_halo_steps(plan, len(ranks))):
-        if 0 <= t - offset < plan["n_steps"]:
-            _step(plan, dp, st, t - offset)
-        if group is not None:
-            recv = mesh.shift_down(rows[0, top + h - 1], group)
-            if recv is not None:
-                rows[0, 0] = recv
+    with span("v1.steps"):
+        for t in range(_halo_steps(plan, len(ranks))):
+            if 0 <= t - offset < plan["n_steps"]:
+                _step(plan, dp, st, t - offset)
+            if group is not None:
+                recv = mesh.shift_down(rows[0, top + h - 1], group)
+                if recv is not None:
+                    rows[0, 0] = recv
     recon = st["recon"].view(nf, top + h + n, w)[:, top:top + h].to(
         torch.uint8)
     modes = st["modes"].view(nf, nby + 1, nbx)[:, :nby]
     qcoeffs = st["qcoeffs"].view(nf, nby + 1, nbx, n, n)[:, :nby]
-    return recon.cpu().numpy(), modes.cpu().numpy(), qcoeffs.cpu().numpy()
+    if profiling.active():
+        # The copies below wait for the steps on the same stream anyway:
+        # the wait, taken apart from them, leaves the card's timeline
+        # as it is.
+        with span("v1.drain"):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+    with span("v1.readback"):
+        out = recon.cpu().numpy(), modes.cpu().numpy(), qcoeffs.cpu().numpy()
+    count("v1.readback_bytes", sum(a.nbytes for a in out))
+    return out
 
 
 def _halo_steps(plan, n_tiles):
@@ -344,11 +371,13 @@ def encode_frames_wavefront_batch(frames_uint8: np.ndarray, qp: int, *,
     :316): the frames share every step's ops on the slot axis.  Returns
     (recons (B, H, W) uint8, modes (B, nby, nbx), qcoeffs (B, nby, nbx,
     n, n)) as numpy arrays, each frame equal to its own encode; this is
-    the device half of `encode_frame_wavefront`."""
-    frames = np.asarray(frames_uint8)
-    nf, h, w = frames.shape
-    plan, dp = _get_plan(h, w, block_size, qp, nf, device)
-    return run(plan, dp, frames)
+    the device half of `encode_frame_wavefront`.  Span `v1.encode_batch`
+    (a batch of its own)."""
+    with span("v1.encode_batch", batch=True):
+        frames = np.asarray(frames_uint8)
+        nf, h, w = frames.shape
+        plan, dp = _get_plan(h, w, block_size, qp, nf, device)
+        return run(plan, dp, frames)
 
 
 def _result(frame_uint8, qp, n, recon, modes, qcoeffs, serialize):

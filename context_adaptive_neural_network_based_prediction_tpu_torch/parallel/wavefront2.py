@@ -90,6 +90,7 @@ from ..codec import sao as sao_mod
 from ..models import pnn_q
 from ..ops import intra, transform, unit_fused
 from ..ops import reference_samples as rs
+from ..utils.profiling import setup_span, span, traced
 from . import mesh, rate_model
 
 CTB = 32
@@ -528,17 +529,18 @@ def _get_plan(height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
               halo=False, n_tiles=1, stripe=0):
     """The cached (plan, device plan).  The key holds every argument the
     plan reads, the bundle by identity; an entry keeps its bundle alive,
-    so the identity stays valid."""
+    so the identity stays valid.  A miss is span `w2.plan_build`."""
     key = (height, width, qp, lam_scale, ctb, enable_nxn, rate_evolve,
            str(device), policy, id(bundle), n_frames, halo, n_tiles, stripe)
     hit = _PLAN_CACHE.get(key)
     if hit is None:
-        plan = _build_wavefront2(height, width, qp, lam_scale, policy=policy,
-                                 bundle=bundle, ctb=ctb,
-                                 enable_nxn=enable_nxn, n_frames=n_frames,
-                                 rate_evolve=rate_evolve, halo=halo,
-                                 n_tiles=n_tiles, stripe=stripe)
-        hit = (plan, _device_plan(plan, device), bundle)
+        with setup_span("w2.plan_build"):
+            plan = _build_wavefront2(
+                height, width, qp, lam_scale, policy=policy, bundle=bundle,
+                ctb=ctb, enable_nxn=enable_nxn, n_frames=n_frames,
+                rate_evolve=rate_evolve, halo=halo, n_tiles=n_tiles,
+                stripe=stripe)
+            hit = (plan, _device_plan(plan, device), bundle)
         _PLAN_CACHE[key] = hit
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
             _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
@@ -1016,7 +1018,8 @@ def run(plan, dp, frames_u8, impl="kernel", group=None):
     ordered (slot, frame)) of `frames_u8` (n_frames, H, W) (JAX package
     :1477-1522).  A halo plan runs this rank's stripe of the global
     schedule with the exchange over the process `group` (JAX
-    :1449-1471)."""
+    :1449-1471).  Spans `w2.steps` (the host issuing the step loop) and
+    `w2.readback` (the copies to the host, with the wait for the card)."""
     dev = dp["mode_bits"].device
     ctb, OFF, W_sk = plan["ctb"], plan["OFF"], plan["W_sk"]
     sby, b_max, NF = plan["sby"], plan["b_max"], plan["n_frames"]
@@ -1047,7 +1050,7 @@ def run(plan, dp, frames_u8, impl="kernel", group=None):
     ys = _new_ys(plan, dev)
     # One loop over the global schedule: without halo it is this plan's
     # own (n_steps_run == n_steps, t_offset 0) and nothing is exchanged.
-    with _exact_f32():
+    with span("w2.steps"), _exact_f32():
         for t in range(plan["n_steps_run"]):
             t_loc = t - plan["t_offset"]
             if 0 <= t_loc < plan["n_steps"]:
@@ -1064,7 +1067,9 @@ def run(plan, dp, frames_u8, impl="kernel", group=None):
         st["recon"][(ROW0 + by) * NF + f, :ctb,
                     OFF + 2 * ctb * by:OFF + 2 * ctb * by + width]
         for by in range(sby)], 0) for f in range(NF)]).to(torch.uint8)
-    return recon.cpu().numpy(), {k: v.cpu().numpy() for k, v in ys.items()}
+    with span("w2.readback"):
+        return recon.cpu().numpy(), {k: v.cpu().numpy()
+                                     for k, v in ys.items()}
 
 
 def _frame_ys(ys, n_frames, f):
@@ -1295,6 +1300,7 @@ def encode_arrays_wavefront2(frame_uint8: np.ndarray, qp: int, *,
         rate_evolve=rate_evolve, device=device, impl=impl)[0]
 
 
+@traced("w2.encode_batch", batch=True)
 def encode_arrays_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
                                    lam_scale: float = 1.0,
                                    policy: str = "regular", pnn=None,
@@ -1303,7 +1309,7 @@ def encode_arrays_wavefront2_batch(frames_uint8: np.ndarray, qp: int, *,
                                    impl: str = "kernel"):
     """The device half of `encode_frames_wavefront2_batch`: the (B, H, W)
     frames through one B-frame plan; returns one (recon (H, W) uint8,
-    grids) per frame."""
+    grids) per frame.  Span `w2.encode_batch`."""
     device = torch.device(device)
     bundle = getattr(pnn, "bundle", pnn)
     frames = np.asarray(frames_uint8)
@@ -1458,7 +1464,11 @@ def encode_stream_wavefront2(frames_iter, qp: int, *, batch: int = 16,
     Python, and on the card a worker thread for it was not faster.
     `workers` > 0 fans the per-frame assembly and pack over a `spawn`
     process pool, which is shut down when the generator ends or is
-    closed."""
+    closed.
+
+    Spans: `w2.encode_batch` over a batch, and in it `w2.pack` over the
+    host half (each frame's assembly and pack, inline or over the pool;
+    the pool's workers record no spans)."""
     device = torch.device(device)
     bundle = getattr(pnn, "bundle", pnn)
     pool = None
@@ -1467,6 +1477,7 @@ def encode_stream_wavefront2(frames_iter, qp: int, *, batch: int = 16,
             max_workers=workers,
             mp_context=multiprocessing.get_context("spawn"))
 
+    @traced("w2.encode_batch", batch=True)
     def encode_batch(frames, n_valid):
         h, w = frames.shape[1:]
         plan, dp = _get_plan(h, w, qp, lam_scale, ctb, enable_nxn,
@@ -1480,8 +1491,9 @@ def encode_stream_wavefront2(frames_iter, qp: int, *, batch: int = 16,
                     per_frame[f], h, w, ctb), policy, True, ctb=ctb)
                 for f in range(n_valid)]
         args = [(ys_f, h, w, qp, policy, ctb) for ys_f in per_frame]
-        streams = (pool.map(_host_pack_one, args) if pool is not None
-                   else map(_host_pack_one, args))
+        with span("w2.pack"):
+            streams = list(pool.map(_host_pack_one, args) if pool is not None
+                           else map(_host_pack_one, args))
         return [enc_mod.EncodeResult(
             bitstream=stream, reconstruction=recon[f],
             num_bits=len(stream) * 8, ctu_trees=None, mode_map=None,
