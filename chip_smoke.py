@@ -101,14 +101,17 @@ printing one line with its seconds:
      ...`) decodes each stream, confirms its picture hash ("(OK)") and
      writes the port's reconstruction
  16  the v1 wavefront encoder (`parallel/wavefront.py`, the uniform
-     16x16 grid; plain PyTorch on the card, no kernel of the port, every
-     launch count 0): the JAX package's v1 test frames at block sizes 8,
-     16 and 32 against tests/golden_torch/w1.json; the 1080p frame at
+     16x16 grid; on the card one launch of the v1 step kernel a step,
+     `ops/csrc/v1_step.cu`, exactly as many launches as steps and none
+     of another kernel): the JAX package's v1 test frames at block sizes
+     8, 16 and 32 against tests/golden_torch/w1.json; the 1080p frame at
      QP 32 as one frame and as phase 10's batch of 4 (recon, modes,
      levels and stream against w1.json; device-half and host-half seconds
-     a frame), the aten ops and host ms of one step and its device
-     time queued behind a spin of the card, against the
-     device half's time a step (busy share); the port's decoder on
+     a frame); the kernel's middle step at b = 1 and b = 64 (the four
+     frames repeated; 61 and 3904 slots): aten ops, ms between CUDA
+     events as the host issues it and queued behind a spin of the card,
+     against its int32 bound and the plain step queued, and the b = 64
+     device half (frame 4 equal to its b = 4 encode); the port's decoder on
      the stream; `encode_frame_wavefront_hm` (Annex-B, CTB 16, deblocking
      and SAO) against w1.json, decoded by stock HM ("(OK)", equal luma)
  17  the quantize path: `quantize_pnn` of the six float singles (default
@@ -397,10 +400,15 @@ def v1_frame(spec):
 
 def _counted():
     from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
-        import fc_forward, merger, merger_int, unit_fused
+        import fc_forward, merger, merger_int, unit_fused, v1_step
 
     return {"unit_trial": unit_fused, "merger_int": merger_int,
-            "fc_forward": fc_forward, "merger": merger}
+            "fc_forward": fc_forward, "merger": merger, "v1_step": v1_step}
+
+
+def v1_n_steps(h, w, n):
+    """The v1 wavefront's steps over an h x w frame of n x n blocks."""
+    return (w // n - 1) + 2 * (h // n - 1) + 1
 
 
 def reset_all_counts():
@@ -1374,14 +1382,17 @@ def main():
         import nn_intra
     from context_adaptive_neural_network_based_prediction_tpu_torch \
         .evaluation import quantize_golden
+    from context_adaptive_neural_network_based_prediction_tpu_torch.ops \
+        import v1_step
     from context_adaptive_neural_network_based_prediction_tpu_torch.parallel \
         import wavefront
     with open(os.path.join(REPO, "tests", "golden_torch", "w1.json")) as f:
         golden_v1 = json.load(f)["cases"]
     with Phase("16 v1 wavefront"), tempfile.TemporaryDirectory() as tmp:
-        # No kernel of the port runs here (plain PyTorch on the card, as
-        # the JAX package leaves this path to XLA): every count stays 0.
+        # The v1 step kernel (ops/csrc/v1_step.cu) runs once a step; no
+        # other kernel of the port runs here.
         reset_all_counts()
+        v1_steps = 0
         for name, g in golden_v1.items():
             if "block_size" not in g or "frames" in g or "loop_filters" in g \
                     or g["frame"]["kind"] == "bench":
@@ -1391,6 +1402,7 @@ def main():
                 fr, g["qp"], block_size=g["block_size"], device=dev)
             _, m1, q1 = wavefront.encode_frames_wavefront_batch(
                 fr[None], g["qp"], block_size=g["block_size"], device=dev)
+            v1_steps += 2 * v1_n_steps(*fr.shape, g["block_size"])
             got = (sha(res.reconstruction), sha(m1[0].astype(np.int32)),
                    sha(q1[0].astype(np.int32)), sha(res.bitstream))
             if got != (g["recon"], g["modes"], g["qcoeffs"], g["stream"]):
@@ -1410,6 +1422,7 @@ def main():
             recons, modes, qcoeffs = wavefront.encode_frames_wavefront_batch(
                 frames_v1, QP, device=dev)
             t_dev1 = time.perf_counter() - t0
+            v1_steps += plan1["n_steps"]
             t0 = time.perf_counter()
             results = [wavefront._result(frames_v1[f], QP, 16, recons[f],
                                          modes[f], qcoeffs[f], True)
@@ -1442,41 +1455,69 @@ def main():
                                     "; frame 0 equals its b=1 encode")
                 + f"; {smi}")
         got_counts = read_all_counts()
-        if any(got_counts.values()):
-            raise AssertionError(f"v1 launched a kernel: {got_counts}")
-        # One step's work: the aten ops it dispatches (views included),
-        # its time between CUDA events as the host issues it, and queued
-        # behind a spin of the card (its device work alone).  A step is
-        # idempotent: its blocks read only earlier steps' output.  No
-        # profiler here: a profile of a whole v1 run (about 38,000 device
-        # activities), or of ten steps inside it, left phase 8's kernel
+        want_counts = dict.fromkeys(got_counts, 0)
+        want_counts["v1_step"] = v1_steps
+        if got_counts != want_counts:
+            raise AssertionError(f"v1 launches {got_counts}, want "
+                                 f"{want_counts} (one v1 step kernel a step)")
+        # The kernel's step at the 1080p frame's middle step, at b = 1 (61
+        # slots) and b = 64 (3904 slots, the benchmark cell's batch; the
+        # four frames repeated): its aten ops, its time between CUDA
+        # events as the host issues it, and queued behind a spin of the
+        # card (its device work alone), against the plain `_step` queued
+        # on the same state.  A step is idempotent: its blocks read only
+        # earlier steps' output.  No profiler here: a profile of a whole
+        # v1 run, or of ten steps inside it, left phase 8's kernel
         # profiles without records.
         st_probe = {}
-        orig_step = wavefront._step
-        mid = plan1["n_steps"] // 2
+        orig_stepper = wavefront._stepper
 
-        def probe_step(plan_, dp_, st_, t):
-            orig_step(plan_, dp_, st_, t)
-            if t == mid:
-                one = lambda: orig_step(plan_, dp_, st_, t)
-                st_probe["ops"] = count_dispatched_ops(one)
-                st_probe["host_ms"] = time_launches(one, reps=20)
-                st_probe["queued_ms"] = time_queued(one)
+        def probing(plan_, dp_, st_):
+            step = orig_stepper(plan_, dp_, st_)
+            mid_ = plan_["n_steps"] // 2
 
-        wavefront._step = probe_step
+            def probe_step(t):
+                step(t)
+                if t == mid_:
+                    one = lambda: step(t)
+                    plain = lambda: wavefront._step(plan_, dp_, st_, t)
+                    st_probe[plan_["n_frames"]] = dict(
+                        blocks=v1_step.blocks_on_frame(plan_, t)
+                        * plan_["n_frames"], slots=plan_["b_eff"],
+                        ops=count_dispatched_ops(one),
+                        host_ms=time_launches(one, reps=20),
+                        queued_ms=time_queued(one),
+                        plain_ms=time_queued(plain, reps=5))
+            return probe_step
+
+        frames64 = np.tile(frames4, (16, 1, 1))
+        wavefront._stepper = probing
         try:
-            wavefront.encode_frames_wavefront_batch(frame[None], QP,
-                                                    device=dev)
+            for fr64 in (frame[None], frames64):
+                wavefront.encode_frames_wavefront_batch(fr64, QP, device=dev)
         finally:
-            wavefront._step = orig_step
+            wavefront._stepper = orig_stepper
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r64, _, _ = wavefront.encode_frames_wavefront_batch(frames64, QP,
+                                                            device=dev)
+        t_dev64 = time.perf_counter() - t0
+        if not np.array_equal(r64[4], recons[0]):
+            raise AssertionError("v1 b=64 frame 4 != its b=4 encode")
         step_ms = 1e3 * v1_times[1][0] / plan1["n_steps"]
-        say(f"v1 1080p b=1 step {mid}: {st_probe['ops']} aten ops "
-            f"dispatched (views included), "
-            f"{st_probe['host_ms']:.4f} ms between CUDA events as the host "
-            f"issues it, {st_probe['queued_ms']:.4f} ms queued (the card's "
-            f"work alone) against {step_ms:.4f} ms a step of the device "
-            f"half: the card busy about "
-            f"{100 * st_probe['queued_ms'] / step_ms:.1f}% of it")
+        for b, pr in sorted(st_probe.items()):
+            # int32 operations: 35 modes x 4 n^3 multiply-adds a block.
+            bound_ms = 1e3 * pr["blocks"] * 35 * 4 * 16 ** 3 * 2 / 33.45e12
+            say(f"v1 step kernel, 1080p step {plan1['n_steps'] // 2}, b={b} "
+                f"({pr['blocks']} blocks of {pr['slots']} slots): "
+                f"{pr['ops']} aten ops, {pr['host_ms']:.4f} ms between CUDA "
+                f"events as the host issues it, {pr['queued_ms']:.4f} ms "
+                f"queued (bound {bound_ms:.4f} ms, int32 operations); the "
+                f"plain step {pr['plain_ms']:.4f} ms queued"
+                + (f"; a step of the b=1 device half {step_ms:.4f} ms"
+                   if b == 1 else f"; b=64 device half {t_dev64:.3f} s = "
+                   f"{1e3 * t_dev64 / 64:.3f} ms a frame, frame 4 equal to "
+                   f"its b=4 encode") + f"; {smi}")
         t0 = time.perf_counter()
         dec_v1 = decoder.decode_frame(v1_res.bitstream, device=dev)
         if not np.array_equal(dec_v1.reconstruction, v1_res.reconstruction):
@@ -2332,8 +2373,11 @@ def multi_rank_phase(dev, smi, *, h=H64, w=W, switch_crop=SWITCH_CROP,
     # (c) the v1 halo encode against one device.
     v1, sec = refs["c"]
     for r, out in enumerate(ranks):
-        (results, _), rsec = out["c v1 tiled halo + tiled"]
+        (results, launched), rsec = out["c v1 tiled halo + tiled"]
         (recon, modes, _), (ind, _, _) = results
+        if on_card and not sum(launched["v1_step"].values()):
+            raise AssertionError(f"phase 20 (c) rank {r}: no v1 step "
+                                 f"kernel launch ({launched})")
         if not np.array_equal(recon, v1.reconstruction) or not \
                 np.array_equal(np.repeat(np.repeat(modes, V1_BLOCK // 4, 0),
                                          V1_BLOCK // 4, 1), v1.mode_map):

@@ -2,18 +2,20 @@
 libraries, bound with ctypes).
 
 Each source is compiled by its own nvcc process, for sm_90a, into the
-port's build directory at first use; `load` starts all of them together
-and waits (a few seconds; nothing includes PyTorch's headers).  Flags
-are given per source: the unit trial is built with `--fmad=false`, which
-keeps every float a*b+c rounded twice, as its plain version computes it
-(the integer merger keeps the flag it was first built with); the float
-PNN kernels are held to a tolerance and keep nvcc's fused multiply-adds,
-at twice the rate.  `-Xptxas -v` puts each kernel's registers and spills
-in `_build_dir.output`.  A failed build raises with the compiler's output;
-nothing falls back.  Only the toolkit's own headers are included (no
-CUTLASS or CuTe): the FC kernel writes its `wgmma`, TMA and `mbarrier`
-instructions as inline PTX and gets `cuTensorMapEncodeTiled` through the
-runtime's driver entry point, so nothing links against libcuda.
+port's build directory at first use; `load` starts the ones asked for
+(all by default) together and waits (a few seconds; nothing includes
+PyTorch's headers), and `library` builds one alone.  Flags are given per
+source: the unit trial and the v1 step are built with `--fmad=false`,
+which keeps every float a*b+c rounded twice, as their plain versions
+compute it (the integer merger keeps the flag it was first built with);
+the float PNN kernels are held to a tolerance and keep nvcc's fused
+multiply-adds, at twice the rate.  `-Xptxas -v` puts each kernel's
+registers and spills in `_build_dir.output`.  A failed build raises with
+the compiler's output; nothing falls back.  Only the toolkit's own
+headers are included (no CUTLASS or CuTe): the FC kernel writes its
+`wgmma`, TMA and `mbarrier` instructions as inline PTX and gets
+`cuTensorMapEncodeTiled` through the runtime's driver entry point, so
+nothing links against libcuda.
 
   unit_trial.cu   the fused unit trial (`unit_fused.trial_apply`): one
                   launch per call, modes on warp lanes, the n = 16 / 32
@@ -24,6 +26,9 @@ runtime's driver entry point, so nothing links against libcuda.
                   tensor cores, split TF32, TMA ring
   merger.cu       the float channelwise merger (`merger.merger_forward`):
                   weights staged in shared memory, blocks walk slots
+  v1_step.cu      one step of the v1 wavefront (`v1_step.stepper`): a
+                  thread block a coded block, the 35 modes on teams of
+                  n threads, int32 butterflies
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {"unit_trial": ("--fmad=false",),
                 "merger_int": ("--fmad=false",),
                 "fc_forward": (),
-                "merger": ()}
+                "merger": (),
+                "v1_step": ("--fmad=false",)}
 NAMES = tuple(SOURCE_FLAGS)
 _lock = threading.Lock()
 _libs: dict = {}
@@ -71,7 +77,9 @@ def _bind(name: str, path: str):
     lib_args = {"unit_trial": [ci, ci] + [vp] * 9,
                 "merger_int": [ci, ci, ci] + [vp] * 5,
                 "fc_forward": [ci] * 6 + [vp] * 7,
-                "merger": [ci] * 6 + [vp] * 5}
+                "merger": [ci] * 6 + [vp] * 5,
+                "v1_step": [ci] * 17 + [ctypes.c_ulonglong, ctypes.c_float]
+                + [vp] * 7}
     getattr(lib, name).argtypes = lib_args[name]
     getattr(lib, name).restype = ci
     err = getattr(lib, f"{name}_error_string")
@@ -80,11 +88,12 @@ def _bind(name: str, path: str):
     return lib
 
 
-def load() -> dict:
-    """Every kernel library, built on first use (one nvcc per source, run
-    at the same time): {name: ctypes library}."""
+def load(names=NAMES) -> dict:
+    """The kernel libraries `names` (every one by default), each built on
+    first use (one nvcc per source, run at the same time): {name: ctypes
+    library} of every library loaded so far."""
     with _lock:
-        missing = [n for n in NAMES if n not in _libs]
+        missing = [n for n in names if n not in _libs]
         paths, errors = {}, []
 
         def run(name):
@@ -106,9 +115,10 @@ def load() -> dict:
 
 
 def library(name: str):
-    """The loaded library of `csrc/<name>.cu`."""
+    """The library of `csrc/<name>.cu`, built and loaded alone on first
+    use."""
     lib = _libs.get(name)
-    return lib if lib is not None else load()[name]
+    return lib if lib is not None else load((name,))[name]
 
 
 def check_tensor(name, t, shape, dtypes, device):

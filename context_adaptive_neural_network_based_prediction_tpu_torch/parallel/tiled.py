@@ -13,8 +13,9 @@ every rank returns equal arrays, trees and bytes.
 * `encode_frame_tiled`: independent stripes (HM tile semantics), each the
   v1 uniform-grid encode of its stripe alone (`parallel/wavefront.py`).
 * `encode_frame_tiled_halo`: the v1 encode on the global wavefront
-  schedule with the halo row exchanged after every step; equal to the
-  single-device `wavefront.encode_frame_wavefront` of the frame.
+  schedule with the halo row exchanged after every step (between the
+  step kernel's launches on the card); equal to the single-device
+  `wavefront.encode_frame_wavefront` of the frame.
 * `encode_frame_tiled_halo_v2`: the quadtree encoder
   (`parallel/wavefront2.py`, CTB 32, regular, substitution and switch)
   with the bottom CTB row of reconstruction exchanged after every step;
@@ -126,13 +127,14 @@ def encode_cases(cases):
     qp, keyword arguments).  Returns (the results in order, this rank's
     kernel launches per kernel over the cases).  The rank function of
     `mesh.spawn_ranks` for the tests, the dry run and the smoke."""
-    from ..ops import merger_int, unit_fused
+    from ..ops import merger_int, unit_fused, v1_step
 
-    for mod in (unit_fused, merger_int):
+    for mod in (unit_fused, merger_int, v1_step):
         mod.reset_launch_counts()
     mesh = mesh_mod.make_mesh({"data": torch.distributed.get_world_size()})
     out = [globals()[name](frame, qp, mesh, **kwargs)
            for name, frame, qp, kwargs in cases]
     launches = {"unit_trial": dict(unit_fused.launches),
-                "merger_int": dict(merger_int.launches)}
+                "merger_int": dict(merger_int.launches),
+                "v1_step": dict(v1_step.launches)}
     return out, launches

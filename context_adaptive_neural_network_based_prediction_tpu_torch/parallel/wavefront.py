@@ -7,8 +7,8 @@ The port of the JAX package's `parallel/wavefront.py` (`_jitted_wavefront`
 :334, `encode_frame_wavefront_hm` :389).  Every n x n block is its own CU
 with one 2Nx2N PU and one TU.  Blocks run along the anti-diagonals
 t = bx + 2*by, so each block's left, above, above-left and above-right
-neighbours are coded one step earlier, as in raster order.  One step is
-one set of PyTorch ops over every slot of the diagonal and all 35 modes:
+neighbours are coded one step earlier, as in raster order.  One step
+codes every slot of the diagonal in all 35 modes:
 
     gather references (clamped at the frame's edges) -> HM fill and [1 2 1]
     filter -> 35-mode prediction (`ops/intra.predict_all_modes`, with
@@ -19,22 +19,26 @@ one set of PyTorch ops over every slot of the diagonal and all 35 modes:
 
 The rate proxy is 2*log2(1+|q|)+1 bits per nonzero level, plus 4; the MPMs
 take the above neighbour as DC (it lies in another CTU row, CTU = n).
-These are the JAX package's semantics, not the wavefront2 trial's, so no
-TPU kernel lies on this path and none of the port's kernels runs here:
-the step is plain PyTorch on the caller's device, as the JAX package
-leaves it to XLA.
+These are the JAX package's semantics, not the wavefront2 trial's, and
+the JAX package leaves the step to XLA: no TPU kernel lies on this path.
+On the CPU a step is the plain PyTorch `_step`; on a CUDA device it is
+one launch of the port's own kernel (`ops/v1_step.py`,
+`ops/csrc/v1_step.cu`), equal to `_step` bit for bit, which launches only
+the step's blocks inside the frames.
 
-Exactness on any device: the four integer transforms are float64
-products, exact since every sum of products stays far below 2^53, turned
-back into integers before the adds and arithmetic shifts.  The rate
-proxy's log2 terms come from one float32 table built with numpy
-(`rate_table`), not from `torch.log2`, and each mode's terms are summed in
-float64, exact in any order (every term is >= 3 with at most 22
-fractional bits, the sum below 2^15), then rounded once to float32 before
-the 4.0 is added.  The cost's float32 adds and product are separate
-roundings in the JAX package's order.  So the CPU and the card give the
-same decisions; where the JAX package's XLA log2 and fused reduction
-round differently, its costs move by float32 roundings only.
+Exactness of the plain step on any device: the four integer transforms
+are float64 products, exact since every sum of products stays far below
+2^53, turned back into integers before the adds and arithmetic shifts.
+The rate proxy's log2 terms come from one float32 table built with numpy
+(`rate_table`), not from `torch.log2`, and each mode's terms are summed
+in float64, exact in any order (every term is >= 3 with at most 22
+fractional bits, the sum below 2^15), then rounded once to float32
+before the 4.0 is added.  The cost's float32 adds and product are
+separate roundings in the JAX package's order.  The kernel keeps every
+one of these roundings (its integer stages are exact in int32).  So the
+CPU and the card give the same decisions; where the JAX package's XLA
+log2 and fused reduction round differently, its costs move by float32
+roundings only.
 
 A batch of NF frames puts its frames on the slot axis, b_eff = b_max * NF
 slots ordered (slot, frame), as port `wavefront2` does; each frame's
@@ -65,7 +69,7 @@ import torch
 from ..codec import deblock, hm_encoder, native, rdo, syntax
 from ..codec import encoder as enc_mod
 from ..codec import sao as sao_mod
-from ..ops import intra, transform
+from ..ops import intra, transform, v1_step
 from ..ops.reference_samples import DC_FILL, FILTER_THRESHOLD
 from ..ops.transform import _product
 from ..utils import profiling
@@ -161,7 +165,7 @@ def _build_plan(height: int, width: int, n: int, qp: int, n_frames: int,
         plane=plane, cells=cells,
         ref_idx=ref_idx.astype(np.int64), blk=blk.astype(np.int64),
         cell=cell.astype(np.int64), left_cell=left_cell.astype(np.int64),
-        has_above=has_above, has_left=b_x > 0,
+        has_halo=bool(has_halo), has_above=has_above, has_left=b_x > 0,
         has_ar=has_above & (b_x < nbx - 1),
         blk_off=(np.arange(n)[:, None] * width
                  + np.arange(n)[None, :]).reshape(-1).astype(np.int64),
@@ -280,6 +284,38 @@ def _step(plan, dp, st, t):
     st["qcoeffs"][cell] = q[slots, best].reshape(b, n * n).to(torch.int32)
 
 
+def _state(plan, frames_u8, dev):
+    """The encode's buffers on `dev`: the frames as int32 in planes of
+    `top` + H + n rows (`frame`), and the reconstruction (`recon`), modes
+    (-1) and levels (`qcoeffs`) the steps fill in."""
+    h, w, n, nf = plan["height"], plan["width"], plan["n"], plan["n_frames"]
+    top = plan["top"]
+    frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(
+        device=dev, dtype=torch.int32)
+    if tuple(frames.shape) != (nf, h, w):
+        raise ValueError(f"frames {tuple(frames.shape)} != plan "
+                         f"{(nf, h, w)}")
+    frame = torch.zeros((nf, top + h + n, w), dtype=torch.int32, device=dev)
+    frame[:, top:top + h] = frames
+    return dict(
+        frame=frame.view(-1),
+        recon=torch.zeros(nf * plan["plane"], dtype=torch.int32,
+                          device=dev),
+        modes=torch.full((nf * plan["cells"],), -1, dtype=torch.int32,
+                         device=dev),
+        qcoeffs=torch.zeros((nf * plan["cells"], n * n), dtype=torch.int32,
+                            device=dev))
+
+
+def _stepper(plan, dp, st):
+    """`step(t)` of `run`: the plain `_step` for state on the CPU, else
+    the kernel (`ops/v1_step.stepper`, which takes CUDA tensors only and
+    raises on any other device)."""
+    if st["recon"].device.type == "cpu":
+        return functools.partial(_step, plan, dp, st)
+    return v1_step.stepper(plan, dp, st)
+
+
 def run(plan, dp, frames_u8, group=None):
     """The device half of the encode: (recons (NF, H, W) uint8, modes (NF,
     nby, nbx) int32, qcoeffs (NF, nby, nbx, n, n) int32), numpy (JAX
@@ -288,32 +324,19 @@ def run(plan, dp, frames_u8, group=None):
     sent down after every global step.
 
     Spans: `v1.upload` (the frames to the device as int32 and the state
-    tensors), `v1.steps` (the host issuing the step loop; once the
-    card's launch queue is full the host waits for the card inside it,
-    so at a large batch it reads card time), `v1.drain` (only while
-    tracing: the wait for what is still queued, before the readback),
-    `v1.readback` (the three copies to the host)."""
+    tensors), `v1.steps` (the host issuing the step loop: on a CUDA
+    device one kernel launch a step, which the host issues well ahead of
+    the card), `v1.drain` (only while tracing: the wait for what is
+    still queued, before the readback), `v1.readback` (the three copies
+    to the host).  Counter `v1.step_kernel`: the kernel's launches
+    (`ops/v1_step`)."""
     dev = dp["rate"].device
     h, w, n, nf = plan["height"], plan["width"], plan["n"], plan["n_frames"]
     top = plan["top"]
     nbx, nby = plan["nbx"], plan["nby"]
     with span("v1.upload"):
-        frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(
-            device=dev, dtype=torch.int32)
-        if tuple(frames.shape) != (nf, h, w):
-            raise ValueError(f"frames {tuple(frames.shape)} != plan "
-                             f"{(nf, h, w)}")
-        frame = torch.zeros((nf, top + h + n, w), dtype=torch.int32,
-                            device=dev)
-        frame[:, top:top + h] = frames
-        st = dict(
-            frame=frame.view(-1),
-            recon=torch.zeros(nf * plan["plane"], dtype=torch.int32,
-                              device=dev),
-            modes=torch.full((nf * plan["cells"],), -1, dtype=torch.int32,
-                             device=dev),
-            qcoeffs=torch.zeros((nf * plan["cells"], n * n),
-                                dtype=torch.int32, device=dev))
+        st = _state(plan, frames_u8, dev)
+    step = _stepper(plan, dp, st)
     # One loop over the global schedule: without a group it is this
     # plan's own (one stripe, offset 0) and nothing is exchanged.
     d, ranks = (0, [0]) if group is None else mesh.group_position(group)
@@ -322,7 +345,7 @@ def run(plan, dp, frames_u8, group=None):
     with span("v1.steps"):
         for t in range(_halo_steps(plan, len(ranks))):
             if 0 <= t - offset < plan["n_steps"]:
-                _step(plan, dp, st, t - offset)
+                step(t - offset)
             if group is not None:
                 recv = mesh.shift_down(rows[0, top + h - 1], group)
                 if recv is not None:

@@ -19,11 +19,16 @@ decoder on the card.  Training: a step's loss and gradients on the card
 against the CPU, a resumed run equal to an uninterrupted one, the TF32 and
 cuDNN flags given back, and the FC kernel's forward after a step on the
 updated weights.  Multi-rank paths: 2 Gloo ranks sharing the card run
-the tiled halo encoder (regular and switch, equal to the single-device
-encode, each rank launching the trial kernel, and under switch the
-merger) and a sharded training chunk (against the single-device chunk).
+the v1 tiled halo encoder (equal to the single-device encode, each rank
+launching the v1 step kernel once a step), the v2 one (regular and
+switch, equal to the single-device encode, each rank launching the trial
+kernel, and under switch the merger) and a sharded training chunk
+(against the single-device chunk).
 The batched transforms and quantiser, `predict_via_hevc_mode` and
-`ycbcr_to_rgb` on CUDA tensors give the CPU's results.
+`ycbcr_to_rgb` on CUDA tensors give the CPU's results.  The v1 step
+kernel equals the plain `_step` after every step of whole encodes (every
+block size, QP 0 to 51, natural, flat and binary frames, batches of 1
+and 3, halo plans), launched once a step.
 Without a card they skip.  The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -44,7 +49,7 @@ from context_adaptive_neural_network_based_prediction_tpu_torch.evaluation impor
 from context_adaptive_neural_network_based_prediction_tpu_torch.models import (
     zoo)
 from context_adaptive_neural_network_based_prediction_tpu_torch.ops import (
-    fc_forward, merger, merger_int, transform, unit_fused)
+    fc_forward, merger, merger_int, transform, unit_fused, v1_step)
 from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import (
     rate_model, wavefront2)
 
@@ -607,8 +612,9 @@ def sha256(a):
     "natural64x64s2_q42_n16", "natural48x48s3_q27_n16",
     "flat32x32_q22_n16", "smooth64x96_q32_n32"])
 def test_v1_encode_on_card_matches_jax_digests(dev, case):
-    """The v1 encoder on the card (plain PyTorch ops; no kernel of the
-    port runs) gives the JAX package's digests and decodes back."""
+    """The v1 encoder on the card (one launch of the step kernel a step,
+    `ops/v1_step.py`, and no other kernel) gives the JAX package's digests
+    and decodes back."""
     from context_adaptive_neural_network_based_prediction_tpu_torch.codec \
         import decoder
     from context_adaptive_neural_network_based_prediction_tpu_torch \
@@ -616,12 +622,18 @@ def test_v1_encode_on_card_matches_jax_digests(dev, case):
 
     g = v1_golden()[case]
     frame = v1_frame(g["frame"])
+    v1_step.reset_launch_counts()
+    unit_fused.reset_launch_counts()
     res = wavefront.encode_frame_wavefront(frame, g["qp"],
                                            block_size=g["block_size"],
                                            device=dev)
     _, modes, qcoeffs = wavefront.encode_frames_wavefront_batch(
         np.stack([frame, frame[::-1].copy()]), g["qp"],
         block_size=g["block_size"], device=dev)
+    plan, _ = wavefront._get_plan(*frame.shape, g["block_size"], g["qp"], 1,
+                                  dev)
+    assert v1_step.launches == {g["block_size"]: 2 * plan["n_steps"]}
+    assert not any(unit_fused.launches.values())
     assert (sha256(res.reconstruction), sha256(modes[0].astype(np.int32)),
             sha256(qcoeffs[0].astype(np.int32)), sha256(res.bitstream)) == (
         g["recon"], g["modes"], g["qcoeffs"], g["stream"])
@@ -629,6 +641,107 @@ def test_v1_encode_on_card_matches_jax_digests(dev, case):
         res.bitstream, device=dev,
         strong_intra_smoothing=g["block_size"] != 32)
     np.testing.assert_array_equal(dec.reconstruction, res.reconstruction)
+
+
+def v1_frames(kind, nf, h, w, seed):
+    """natural (`v1_frames.make_frame`), flat or binary 0 / 255 frames."""
+    if kind == "natural":
+        return np.stack([v1_frame({"kind": "natural", "h": h, "w": w,
+                                   "seed": seed + f}) for f in range(nf)])
+    if kind == "flat":
+        return np.stack([np.full((h, w), 77 + 30 * f, np.uint8)
+                         for f in range(nf)])
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2, (nf, h, w)) * 255).astype(np.uint8)
+
+
+def v1_kernel_against_plain(dev, h, w, n, qp, nf, kind, top=0,
+                            has_halo=False):
+    """A whole encode, step by step: the kernel's step on one copy of the
+    state and the plain `_step` on another, the reconstruction (halo row
+    included), modes and levels equal after every step (the pad rows and
+    cells below the frames aside: only the plain step writes them, and
+    nothing reads them).  Returns the step count."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .parallel import wavefront
+
+    plan, dp = wavefront._get_plan(h, w, n, qp, nf, dev, top, has_halo)
+    st = wavefront._state(plan, v1_frames(kind, nf, h, w, 7), dev)
+    if top:      # the halo row as a stripe above would have left it
+        st["recon"].view(nf, top + h + n, w)[:, 0] = torch.from_numpy(
+            np.random.default_rng(3).integers(0, 256, w)).int().to(dev)
+    kst = {k: v.clone() for k, v in st.items()}
+    step = v1_step.stepper(plan, dp, kst)
+    nby, nbx = plan["nby"], plan["nbx"]
+    parts = lambda s: (s["recon"].view(nf, top + h + n, w)[:, :top + h],
+                       s["modes"].view(nf, nby + 1, nbx)[:, :nby],
+                       s["qcoeffs"].view(nf, nby + 1, nbx, n, n)[:, :nby])
+    for t in range(plan["n_steps"]):
+        wavefront._step(plan, dp, st, t)
+        step(t)
+        for name, a, b in zip(("recon", "modes", "levels"), parts(st),
+                              parts(kst)):
+            assert torch.equal(a, b), (name, t)
+    return plan["n_steps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["natural", "flat", "binary"])
+@pytest.mark.parametrize("qp", [0, 22, 32, 51])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_v1_step_kernel_equals_plain_step(dev, n, qp, kind):
+    """The step kernel against the plain `_step`, step by step over a
+    whole one-frame encode, at every block size, QP 0 (the largest levels)
+    to 51, on natural, flat and binary 0 / 255 content; one launch a
+    step."""
+    h, w = (64, 96) if n == 32 else (4 * n, 6 * n) if n == 16 else (32, 48)
+    v1_step.reset_launch_counts()
+    steps = v1_kernel_against_plain(dev, h, w, n, qp, 1, kind)
+    assert v1_step.launches == {n: steps}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_v1_step_kernel_batch_of_three_equals_plain_step(dev, n):
+    v1_kernel_against_plain(dev, 3 * n, 5 * n, n, 27, 3, "natural")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_halo", [False, True])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_v1_step_kernel_halo_plan_equals_plain_step(dev, n, has_halo):
+    """A halo rank's plan (`top` = 1; `has_halo`: a stripe below
+    another, whose first block row reads the halo row)."""
+    v1_kernel_against_plain(dev, 2 * n, 5 * n, n, 30, 2, "natural", top=1,
+                            has_halo=has_halo)
+
+
+@pytest.mark.cuda
+def test_v1_step_kernel_counts_its_launches(dev):
+    """An encode launches the kernel once a step: `launches` and the
+    tracer's `v1.step_kernel` counter both read the step count, and the
+    result equals the CPU's plain encode."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .parallel import wavefront
+    from context_adaptive_neural_network_based_prediction_tpu_torch.utils \
+        import profiling
+
+    frames = v1_frames("natural", 2, 48, 80, 11)
+    plan, _ = wavefront._get_plan(48, 80, 16, 32, 2, dev)
+    v1_step.reset_launch_counts()
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = wavefront.encode_frames_wavefront_batch(frames, 32, device=dev)
+        counted = profiling.counters().get("v1.step_kernel")
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert v1_step.launches == {16: plan["n_steps"]}
+    assert counted == plan["n_steps"]
+    want = wavefront.encode_frames_wavefront_batch(frames, 32, device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda
@@ -888,6 +1001,32 @@ def _tiled_frame():
     yy, xx = np.mgrid[0:128, 0:64]
     return np.clip(128 + 45 * np.sin(xx / 11.0) + 35 * np.cos(yy / 8.0)
                    + rng.normal(0, 7, (128, 64)), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_tiled_halo_v1_two_ranks_on_card_equal_single_device(dev):
+    """Two Gloo ranks on the card: the v1 halo encode (`top` = 1 plans,
+    the halo row exchanged between the step kernel's launches) equals the
+    single-device encode, and each rank launched the kernel once a step
+    of its stripe's schedule."""
+    from context_adaptive_neural_network_based_prediction_tpu_torch \
+        .parallel import mesh, tiled, wavefront
+
+    frame = _tiled_frame()
+    ranks = mesh.spawn_ranks(
+        tiled.encode_cases, 2, device="cuda:0", timeout=600,
+        args=([("encode_frame_tiled_halo", frame, 32,
+                dict(block_size=16, device="cuda"))],))
+    single = wavefront.encode_frame_wavefront(frame, 32, block_size=16,
+                                              device=dev)
+    plan, _ = wavefront._get_plan(64, 64, 16, 32, 1, dev)
+    for (results, launches) in ranks:
+        recon, modes, _ = results[0]
+        np.testing.assert_array_equal(recon, single.reconstruction)
+        np.testing.assert_array_equal(
+            np.repeat(np.repeat(modes, 4, 0), 4, 1), single.mode_map)
+        assert launches["v1_step"] == {16: plan["n_steps"]}
+        assert not any(launches["unit_trial"].values())
 
 
 @pytest.mark.cuda

@@ -19,6 +19,12 @@ package's, with zero tolerance.
   rate proxy independent of summation order.
 * The 1056x1920 frame at b = 1 and b = 4 and its Annex-B stream against
   the digests (marked slow: about a minute of CPU).
+* The step kernel's wrapper (`ops/v1_step.py`; the kernel runs only on a
+  card, `tests/test_torch_cuda.py`): CPU state takes the plain `_step`
+  and launches nothing; the wrapper refuses state on another device, of
+  another dtype or shape, without launching; its grid is the step's
+  blocks inside the frames; its dequantiser scalars give `dequantize_np`;
+  and the int32 bounds of the kernel's exactness argument hold.
 """
 
 import hashlib
@@ -39,8 +45,12 @@ from context_adaptive_neural_network_based_prediction_tpu.parallel import (
     wavefront as j_wavefront)
 from context_adaptive_neural_network_based_prediction_tpu_torch.codec import (
     decoder as t_decoder, native as t_native)
+from context_adaptive_neural_network_based_prediction_tpu_torch.ops import (
+    _cuda_build, transform, v1_step)
 from context_adaptive_neural_network_based_prediction_tpu_torch.parallel import (
     wavefront as t_wavefront)
+from context_adaptive_neural_network_based_prediction_tpu_torch.utils import (
+    profiling)
 from context_adaptive_neural_network_based_prediction_tpu_torch.evaluation \
     .v1_frames import BATCH_CASE, HM_CASES, V1_CASES, batch4, make_frame
 
@@ -245,6 +255,139 @@ def test_levels_stay_inside_the_rate_table(n):
     j_recon, j_modes, j_q = jax_arrays(frame, 0, n)
     np.testing.assert_array_equal(recons[0], j_recon.astype(np.uint8))
     np.testing.assert_array_equal(qcoeffs[0], j_q)
+
+
+def cpu_state(n=8, nf=2, qp=30, top=0, has_halo=False):
+    frames = natural_frames(2 * n, 5 * n, [21, 22, 23][:nf])
+    plan, dp = t_wavefront._get_plan(2 * n, 5 * n, n, qp, nf, "cpu", top,
+                                     has_halo)
+    return plan, dp, t_wavefront._state(plan, frames, torch.device("cpu"))
+
+
+def test_cpu_steps_are_the_plain_step_and_launch_nothing():
+    """CPU state runs the plain `_step` (what the JAX comparisons above
+    hold): an encode launches no kernel, counts no `v1.step_kernel` and
+    loads no kernel library."""
+    v1_step.reset_launch_counts()
+    plan, dp, st = cpu_state()
+    step = t_wavefront._stepper(plan, dp, st)
+    assert step.func is t_wavefront._step
+    frames = natural_frames(32, 48, [5, 6])
+    profiling.reset()
+    profiling.enable()
+    try:
+        recons, _, _ = port_arrays(frames, 30, 8)
+        counters = profiling.counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert "v1.step_kernel" not in counters
+    assert counters["v1.readback_bytes"] > 0
+    assert v1_step.launches == {}
+    assert "v1_step" not in _cuda_build._libs
+    np.testing.assert_array_equal(recons[1],
+                                  port_arrays(frames[1:], 30, 8)[0][0])
+
+
+@pytest.mark.parametrize("what", ["device", "meta", "dtype", "shape",
+                                  "table"])
+def test_kernel_wrapper_refuses_without_launching(what):
+    """The wrapper takes CUDA tensors of the plan's dtypes and shapes, or
+    raises ValueError before it builds or launches anything: no fallback
+    (state on a device other than the CPU never reaches the plain
+    step)."""
+    v1_step.reset_launch_counts()
+    plan, dp, st = cpu_state()
+    if what == "device":
+        call = lambda: v1_step.stepper(plan, dp, st)
+    elif what == "meta":
+        meta = {k: torch.empty_like(v, device="meta") for k, v in st.items()}
+        call = lambda: t_wavefront._stepper(plan, dp, meta)
+    else:
+        if what == "dtype":
+            st["recon"] = st["recon"].to(torch.int64)
+        elif what == "shape":
+            st["qcoeffs"] = st["qcoeffs"][:, :-1].contiguous()
+        else:
+            dp = dict(dp, rate=dp["rate"].to(torch.float64))
+        call = lambda: v1_step.kernel_args(plan, dp, st)
+    with pytest.raises(ValueError):
+        call()
+    assert v1_step.launches == {}
+    assert "v1_step" not in _cuda_build._libs
+
+
+@pytest.mark.parametrize("n,nf,top,has_halo", [
+    (4, 1, 0, False), (8, 3, 0, False), (16, 2, 1, False), (32, 1, 1, True)])
+def test_kernel_grid_is_the_steps_blocks_on_the_frame(n, nf, top, has_halo):
+    """`blocks_on_frame(plan, t)` x NF is the plan's slots of step t on the
+    frames (the kernel's grid), for wide, tall and square grids."""
+    for h, w in ((3 * n, 11 * n), (9 * n, 2 * n), (5 * n, 5 * n)):
+        plan, _ = t_wavefront._get_plan(h, w, n, 32, nf, "cpu", top,
+                                        has_halo)
+        pad = plan["nby"] * plan["nbx"]
+        on = (plan["cell"] % plan["cells"] != pad).sum(1)
+        got = [v1_step.blocks_on_frame(plan, t) * nf
+               for t in range(plan["n_steps"])]
+        assert got == on.tolist()
+        for t in (-1, plan["n_steps"]):
+            with pytest.raises(ValueError):
+                v1_step.blocks_on_frame(plan, t)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("qp", [0, 22, 37, 51])
+def test_kernel_args_carry_the_plans_scalars(n, qp):
+    """The kernel's scalars: its dequantiser (a right shift with rounding,
+    or a left shift) gives `dequantize_np` on every level, and bit m of
+    its mask is the plan's `use_filtered[m]`."""
+    plan, dp, st = cpu_state(n=n, nf=1, qp=qp, top=1, has_halo=True)
+    args = v1_step.kernel_args(plan, dp, st)
+    (nf, width, height, top, has_halo, nbx, nby, plane, cells, qscale,
+     qbits, qadd, dq_scale, dq_shift, mask, lam) = args[:16]
+    assert (nf, width, height, top, has_halo, nbx, nby) == (
+        1, 5 * n, 2 * n, 1, 1, 5, 2)
+    assert (plane, cells, qscale, qbits, qadd) == (
+        plan["plane"], plan["cells"], plan["qscale"], plan["qbits"],
+        plan["qadd"])
+    assert np.float32(lam) == plan["lam"]
+    assert [bool(mask >> m & 1) for m in range(35)] == \
+        plan["use_filtered"].tolist()
+    lv = np.arange(-(1 << 15) + 1, 1 << 15, dtype=np.int64)
+    if dq_shift > 0:
+        v = (lv * dq_scale + (1 << (dq_shift - 1))) >> dq_shift
+    else:
+        v = lv * dq_scale * (1 << -dq_shift)
+    assert np.abs(lv * dq_scale * (1 << max(0, -dq_shift))).max() < 2 ** 31
+    np.testing.assert_array_equal(
+        np.clip(v, -32768, 32767),
+        transform.dequantize_np(lv.astype(np.int32).reshape(-1, 1, 1)
+                                .repeat(n, 1).repeat(n, 2), qp)[:, 0, 0])
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_kernel_int32_bounds(n):
+    """The bounds of `csrc/v1_step.cu`'s exactness argument: every DCT row
+    has an L1 norm of at most 64 n, so the forward transform of any 8-bit
+    residual block keeps |coeff| <= 32640 (shown on the worst sign
+    pattern of every coefficient), the quantiser's product stays below
+    2^31 at QP 0 and the levels below 2^15."""
+    t = transform.dct_matrix(n).astype(np.int64)
+    assert np.abs(t).sum(1).max() <= 64 * n
+    log2n = n.bit_length() - 1
+    sh1, sh2 = log2n - 1, log2n + 6
+    sg = np.sign(t)                                  # (k, x)
+    # r[k, l] = 255 sign(T[k, i]) sign(T[l, x]): the largest coeff (k, l).
+    for sign in (1, -1):
+        r = sign * 255 * sg[:, None, :, None] * sg[None, :, None, :]
+        a = (np.einsum("klix,jx->klij", r, t) + (1 << (sh1 - 1))) >> sh1
+        c = (np.einsum("ji,klim->kljm", t, a) + (1 << (sh2 - 1))) >> sh2
+        k, l = np.arange(n)[:, None], np.arange(n)[None, :]
+        assert np.abs(a).max() <= 32640
+        assert np.abs(c).max() <= 32640 == np.abs(c[k, l, k, l]).max()
+    qbits = 14 + 0 + (15 - 8 - log2n)
+    prod = 32640 * transform.QUANT_SCALES[0] + (171 << (qbits - 9))
+    assert prod < 2 ** 31 and (prod >> qbits) < 2 ** 15
 
 
 @pytest.mark.slow
